@@ -1,0 +1,401 @@
+"""Drive the PyTorch port's serving path once on one CUDA card (sm_90a).
+
+    python3 chip_smoke.py
+
+Phases (each prints its own lines; any failure raises and exits non-zero):
+  1. device   -- nvidia-smi name/power limit, torch/CUDA versions; needs a
+                 CUDA card of capability (9, 0)
+  2. build    -- compile tpumil_torch/csrc/*.cu into build/tpumil_torch/
+  3. kernel   -- fused_instance_norm vs its plain PyTorch version at the five
+                 ResNet18 IN shapes (B=128), f32 and bf16, relu on/off, plus
+                 a constant plane; CUDA-event times of both
+  4. embedder -- ResNet18-IN f32 224^2 batch 128: kernel route vs plain route,
+                 20 kernel launches per forward
+  5. golden   -- the shipped aggregators vs the reference's golden outputs
+  6. serve    -- tpumil_torch.cli.serve on 127.0.0.1, concurrent clients on
+                 /v1/embed, /v1/predict_patches, /v1/predict, /v1/heatmap
+Then one JSON line of kernel results and, last, the device JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+B = 128
+IN_SHAPES = [(112, 64), (56, 64), (28, 128), (14, 256), (7, 512)]
+# |kernel - plain| <= ATOL + RTOL * |plain|. f32: both sum in f32 in other
+# orders (test_in_pallas.py's 2e-5). bf16: the output is rounded to bf16, so
+# the two may differ by one bf16 step (2^-7 relative).
+TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 2 ** -7)}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms, from CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                atol: float, rtol: float) -> float:
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs()
+    bad = err > atol + rtol * want.abs()
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} elements out of "
+                             f"tolerance (max abs err {err.max().item():.3e}, "
+                             f"atol {atol}, rtol {rtol})")
+    return err.max().item()
+
+
+def phase_device() -> str:
+    gpu = gpu_line()
+    log(f"[device] nvidia-smi: {gpu}")
+    log(f"[device] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    cap = torch.cuda.get_device_capability(0)
+    log(f"[device] {torch.cuda.get_device_name(0)} capability {cap} "
+        f"count {torch.cuda.device_count()}")
+    if cap != (9, 0):
+        raise RuntimeError(f"needs a capability (9, 0) card, got {cap}")
+    return gpu
+
+
+def phase_build() -> None:
+    from tpumil_torch.utils import build
+
+    path, seconds, compiler_log = build.build(verbose=True)
+    rel = os.path.relpath(path, REPO)
+    srcs = [os.path.relpath(p, REPO) for p in build.sources()]
+    log(f"[build] nvcc {' '.join(build.NVCC_FLAGS)} {' '.join(srcs)} -> {rel} "
+        f"in {seconds:.2f} s" + (" (cached)" if seconds == 0 else ""))
+    for line in compiler_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build]   ptxas: {line.strip()}")
+    build.load_library()
+
+
+def phase_kernel(gpu: str) -> dict:
+    from tpumil_torch.ops.instance_norm import (fused_instance_norm,
+                                                instance_norm_plain)
+
+    rng = np.random.default_rng(0)
+    max_err_f32 = 0.0
+    ms_total = plain_total = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = TOL[dtype]
+        for h, c in IN_SHAPES:
+            x = torch.from_numpy(
+                rng.standard_normal((B, h, h, c), np.float32) * 3 + 1
+            ).to("cuda", dtype)
+            for relu in (False, True):
+                got = fused_instance_norm(x, relu)
+                torch.cuda.synchronize()
+                want = instance_norm_plain(x, relu)
+                err = check_close(f"IN {dtype} {h}x{h}x{c} relu={relu}", got,
+                                  want, atol, rtol)
+                if dtype == torch.float32:
+                    max_err_f32 = max(max_err_f32, err)
+                ms = cuda_ms(lambda: fused_instance_norm(x, relu), 20)
+                plain_ms = cuda_ms(lambda: instance_norm_plain(x, relu), 5)
+                if dtype == torch.float32 and relu:
+                    ms_total += ms
+                    plain_total += plain_ms
+                nbytes = 2 * x.numel() * x.element_size()  # one read + one write
+                log(f"[kernel] IN [{B},{h},{h},{c}] {str(dtype)[6:]} "
+                    f"relu={int(relu)}: max_abs_err {err:.3e} (atol {atol}, "
+                    f"rtol {rtol:.3g}); kernel {ms:.4f} ms "
+                    f"({nbytes / ms / 1e6:.0f} GB/s at 1R+1W), plain "
+                    f"{plain_ms:.4f} ms; {gpu}")
+            del x, got, want
+    # blank-tile planes: exactly constant, and constant + 1e-4 noise
+    x = np.full((4, 56, 56, 64), 3.7, np.float32)
+    x[1] += rng.standard_normal((56, 56, 64)).astype(np.float32) * 1e-4
+    xt = torch.from_numpy(x).cuda()
+    got = fused_instance_norm(xt, True)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all() or got[0].abs().max().item() != 0.0:
+        raise AssertionError("constant plane: expected finite zeros")
+    err = check_close("IN near-constant plane", got, instance_norm_plain(xt, True),
+                      2e-2, 0.0)
+    log(f"[kernel] constant plane -> exact zeros; near-constant plane "
+        f"max_abs_err {err:.3e} (atol 2e-2)")
+    log(f"[kernel] sum over the five shapes (f32, relu): kernel "
+        f"{ms_total:.4f} ms, plain {plain_total:.4f} ms; {gpu}")
+    return {"max_abs_err": max_err_f32, "ms": ms_total, "plain_ms": plain_total}
+
+
+def phase_embedder(gpu: str) -> None:
+    from tpumil_torch.models import embedder, resnet
+    from tpumil_torch.ops import instance_norm
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    imgs = torch.from_numpy(
+        rng.integers(0, 256, (B, 224, 224, 3), np.uint8)).to(dev)
+    fn = instance_norm.fused_instance_norm
+    for precision in ("f32", "bf16"):
+        cfg = embedder.EmbedderConfig(backbone="resnet18", norm="instance",
+                                      precision=precision)
+        model = embedder.init_params(0, cfg, dev)
+        with torch.inference_mode():
+            fn.launches = 0
+            feats_k, _ = model(imgs)
+            torch.cuda.synchronize()
+            per_fwd = fn.launches
+            ms_k = cuda_ms(lambda: model(imgs), 10)
+            resnet.fused_instance_norm = instance_norm.instance_norm_plain
+            try:
+                feats_p, _ = model(imgs)
+                ms_p = cuda_ms(lambda: model(imgs), 10)
+            finally:
+                resnet.fused_instance_norm = fn
+        if per_fwd != 20:
+            raise AssertionError(f"expected 20 IN kernel launches per ResNet18 "
+                                 f"forward, counted {per_fwd}")
+        if feats_k.shape != (B, 512) or not torch.isfinite(feats_k).all():
+            raise AssertionError(f"bad features {tuple(feats_k.shape)}")
+        err = (feats_k - feats_p).abs().max().item()
+        if precision == "f32":
+            # 20 normalizations in another summation order (the
+            # test_in_pallas.py forward-parity bar)
+            check_close("embedder features", feats_k, feats_p, 1e-4, 1e-4)
+            # the card against the port's CPU path, which the CPU tests hold
+            # to the JAX package at the same bar
+            ref = embedder.Embedder(cfg, torch.device("cpu"))
+            ref.load_state_dict(model.state_dict())
+            with torch.inference_mode():
+                feats_cpu, _ = ref(imgs[:4].cpu())
+            cpu_err = check_close("embedder card vs CPU", feats_k[:4].cpu(),
+                                  feats_cpu, 1e-4, 1e-4)
+            log(f"[embedder] resnet18-IN f32: card vs the CPU path on 4 "
+                f"patches max_abs_err {cpu_err:.3e} (atol 1e-4, rtol 1e-4)")
+        log(f"[embedder] resnet18-IN {precision} 224^2 B={B}: {per_fwd} kernel "
+            f"launches/forward; kernel route {ms_k:.3f} ms "
+            f"({B / ms_k * 1e3:.0f} patches/s), plain route {ms_p:.3f} ms "
+            f"({B / ms_p * 1e3:.0f} patches/s); feature max_abs_err {err:.3e}"
+            f"{' (atol 1e-4, rtol 1e-4)' if precision == 'f32' else ''}; {gpu}")
+        del model
+
+
+def phase_golden() -> None:
+    from tpumil_torch.io import torch_ckpt
+
+    golden = np.load(os.path.join(REPO, "tests", "data",
+                                  "golden_aggregator.npz"))
+    for name in ("c16", "tcga"):
+        model, cfg, _ = torch_ckpt.load_mil_pth(
+            os.path.join(REPO, "tests", "data", f"{name}_aggregator.pth"),
+            torch.device("cuda"))
+        with torch.inference_mode():
+            c, bag, attn, _ = model(
+                torch.from_numpy(golden[f"{name}_feats"]).cuda())
+        np.testing.assert_allclose(bag.cpu().numpy()[None],
+                                   golden[f"{name}_bag_logits"],
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(attn.cpu().numpy(),
+                                   golden[f"{name}_attention"],
+                                   rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(c.cpu().numpy(),
+                                   golden[f"{name}_ins_logits"],
+                                   rtol=1e-4, atol=1e-5)
+        log(f"[golden] {name} aggregator matches the reference outputs "
+            f"(rtol 1e-4, atol 1e-5/1e-6)")
+
+
+def phase_serve(gpu: str) -> int:
+    from tpumil_torch.cli import serve
+    from tpumil_torch.infer.client import ServingClient
+    from tpumil_torch.models import embedder
+    from tpumil_torch.ops.instance_norm import fused_instance_norm
+
+    rng = np.random.default_rng(2)
+    n_embed, n_pp = 300, 200
+    embed_imgs = rng.integers(0, 256, (n_embed, 224, 224, 3), np.uint8)
+    pp_imgs = rng.integers(0, 256, (n_pp, 224, 224, 3), np.uint8)
+    hm_imgs = rng.integers(0, 256, (64, 224, 224, 3), np.uint8)
+    hm_pos = np.stack(np.meshgrid(np.arange(8), np.arange(8)), -1).reshape(-1, 2)
+    bag = rng.standard_normal((20_000, 512)).astype(np.float32)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "embedder.pth")
+        cfg = embedder.EmbedderConfig(backbone="resnet18", num_classes=2)
+        src = embedder.init_params(0, cfg, torch.device("cpu"))
+        torch.save(embedder.export_embedder_state_dict(src), ckpt)
+        args = serve.parse_args([
+            "--embedder_weights", ckpt,
+            "--aggregator_weights",
+            os.path.join(REPO, "tests", "data", "tcga_aggregator.pth"),
+            "--num_classes", "2", "--device", "cuda", "--precision", "f32",
+            "--batch_size", str(B)])
+        fused_instance_norm.launches = 0  # the main path starts here
+        t0 = time.perf_counter()
+        service = serve.build_service(args)
+        log(f"[serve] service built (load + warm-up) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        server = serve.make_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            host, port = server.server_address[:2]
+            client = ServingClient(f"http://{host}:{port}", timeout=600)
+            results, latency, errors = {}, {}, []
+
+            def call(name, fn):
+                try:
+                    t = time.perf_counter()
+                    results[name] = fn()
+                    latency[name] = time.perf_counter() - t
+                except BaseException as exc:  # noqa: BLE001 - re-raised below
+                    errors.append((name, exc))
+
+            calls = {
+                "embed": lambda: client.embed(embed_imgs),
+                "predict_patches": lambda: client.predict_patches(
+                    pp_imgs, attention=True),
+                "predict": lambda: client.predict(bag, attention=True),
+                "heatmap": lambda: client.heatmap(hm_imgs, hm_pos),
+            }
+            threads = [threading.Thread(target=call, args=item)
+                       for item in calls.items()]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            if errors:
+                raise RuntimeError(f"serve requests failed: {errors}")
+            if any(t.is_alive() for t in threads):
+                raise RuntimeError("a serve request did not finish in 600 s")
+
+            # throughput: 4 concurrent clients x 512 patches on /v1/embed
+            tp_imgs = rng.integers(0, 256, (512, 224, 224, 3), np.uint8)
+            tp_threads = [threading.Thread(
+                target=call, args=(f"tp{i}", lambda: client.embed(tp_imgs)))
+                for i in range(4)]
+            t0 = time.perf_counter()
+            for t in tp_threads:
+                t.start()
+            for t in tp_threads:
+                t.join(timeout=600)
+            tp_wall = time.perf_counter() - t0
+            if errors or any(t.is_alive() for t in tp_threads):
+                raise RuntimeError(f"throughput requests failed: {errors}")
+
+            stats = client.stats()
+            health = client.health()
+            launches = fused_instance_norm.launches
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+
+        # -- checks ----------------------------------------------------------
+        feats = results["embed"]
+        if feats.shape != (n_embed, 512) or not np.isfinite(feats).all():
+            raise AssertionError(f"embed: bad features {feats.shape}")
+        with torch.inference_mode():
+            direct = []
+            for s in range(0, n_embed, B):
+                buf = np.zeros((B, 224, 224, 3), np.uint8)
+                chunk = embed_imgs[s:s + B]
+                buf[:len(chunk)] = chunk
+                f, _ = service.embedder(torch.from_numpy(buf))
+                direct.append(f.cpu().numpy()[:len(chunk)])
+            direct = np.concatenate(direct)
+            agg = service.aggregator
+            _, bag_logits, attn, _ = agg(torch.from_numpy(bag).cuda())
+            want_scores = torch.sigmoid(bag_logits).cpu().numpy()
+        np.testing.assert_allclose(feats, direct, rtol=0, atol=1e-5)
+        bitwise = bool(np.array_equal(feats, direct))
+        pp = results["predict_patches"]
+        pr = results["predict"]
+        hm = results["heatmap"]
+        for name, out, n in (("predict_patches", pp, n_pp),
+                             ("predict", pr, bag.shape[0])):
+            att = np.asarray(out["attention"])
+            if (len(out["scores"]) != 2 or att.shape != (n, 2)
+                    or not np.isfinite(att).all()
+                    or not all(0.0 <= s <= 1.0 for s in out["scores"])):
+                raise AssertionError(f"{name}: bad response {out['scores']} "
+                                     f"{att.shape}")
+        np.testing.assert_allclose(pr["scores"], want_scores, rtol=0, atol=1e-5)
+        if hm["png"][:8] != b"\x89PNG\r\n\x1a\n" or len(hm["scores"]) != 2:
+            raise AssertionError("heatmap: bad PNG response")
+        if stats["errors"] != 0:
+            raise AssertionError(f"/stats reports errors: {stats}")
+        if health["backend"] != "cuda":
+            raise AssertionError(f"/healthz backend {health['backend']}")
+        if launches == 0:
+            raise AssertionError("the serving path launched no IN kernel")
+        log(f"[serve] embed rows vs in-process forward: max_abs_err "
+            f"{np.abs(feats - direct).max():.3e} (atol 1e-5), bitwise equal: "
+            f"{bitwise}")
+        log(f"[serve] all 4 routes answered 200; /stats {json.dumps(stats)}; "
+            f"IN kernel launches {launches}")
+        lat = ", ".join(f"{k} {latency[k] * 1e3:.1f} ms" for k in calls)
+        log(f"[serve] concurrent latencies: {lat}; wall {wall * 1e3:.1f} ms "
+            f"({n_embed} patches/embed: {n_embed / latency['embed']:.0f} "
+            f"patches/s); {gpu}")
+        log(f"[serve] embed throughput: 4 clients x 512 patches in "
+            f"{tp_wall:.3f} s = {2048 / tp_wall:.0f} patches/s; {gpu}")
+        return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    gpu = phase_device()
+    phase_build()
+    k4 = phase_kernel(gpu)
+    phase_embedder(gpu)
+    phase_golden()
+    launches = phase_serve(gpu)
+    print(json.dumps({"kernels": [{
+        "name": "fused_instance_norm", "route": "cuda",
+        "source": "tpumil_torch/csrc/instance_norm.cu",
+        "replaces": "tpumil/ops/in_pallas.py:49",
+        "launches": launches, "max_abs_err": k4["max_abs_err"],
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"]}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

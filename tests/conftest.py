@@ -61,3 +61,8 @@ def pytest_configure(config):
         "markers",
         "parity_real: accuracy parity on real mounted datasets "
         "(skips unless datasets/ is present; see tests/test_parity_real.py)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card of capability (9, 0) for the port's "
+        "hand-written kernels (skips without one; run on the card with "
+        "python -m pytest --noconftest tests/test_torch_kernels_cuda.py)")

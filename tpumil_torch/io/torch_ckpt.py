@@ -1,0 +1,72 @@
+"""``.pth`` state_dict I/O (counterpart of tpumil/io/torch_ckpt.py).
+
+Aggregator schema (the reference's train_tcga.py ``torch.save``):
+
+    i_classifier.fc.0.{weight,bias}   [C, K], [C]
+    b_classifier.q.0.{weight,bias}    [128, K]    (nonlinear q, layer 0)
+    b_classifier.q.2.{weight,bias}    [128, 128]  (nonlinear q, layer 2)
+    b_classifier.q.{weight,bias}      [128, K]    (linear q variant)
+    b_classifier.v.1.{weight,bias}    [K, K]      (passing_v variant)
+    b_classifier.fcc.{weight,bias}    [C, C, K], [C]
+
+Some loaders see ``i_classifier.fc.{weight,bias}``; both spellings load.
+The port's ``DSMIL`` module has exactly these ``state_dict`` keys, so a
+checkpoint loads with ``strict=True``.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Tuple
+
+import torch
+
+from tpumil_torch.models.dsmil import DSMIL, DSMILConfig
+from tpumil_torch.models.registry import get_model
+
+
+def load_state_dict(path: str) -> "collections.OrderedDict":
+    """A ``.pth`` state_dict as an OrderedDict of CPU tensors, in saved
+    order (the positional surgery depends on it). Tensors only: the file
+    is loaded with ``weights_only=True``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return collections.OrderedDict((k, v.detach()) for k, v in sd.items())
+
+
+def strip_projection_head(sd: "collections.OrderedDict",
+                          n: int = 4) -> "collections.OrderedDict":
+    """Drop the last ``n`` entries (the SimCLR projection MLP), the
+    reference's 4x ``popitem()``."""
+    keys = list(sd.keys())[: len(sd) - n]
+    return collections.OrderedDict((k, sd[k]) for k in keys)
+
+
+def dsmil_config_from_state_dict(sd) -> DSMILConfig:
+    """Infer feats_size / num_classes / nonlinear / passing_v from keys."""
+    w = sd.get("i_classifier.fc.0.weight", sd.get("i_classifier.fc.weight"))
+    if w is None:
+        raise KeyError("no i_classifier.fc[.0].weight in checkpoint "
+                       f"(keys: {list(sd)[:8]}...)")
+    num_classes, feats_size = w.shape
+    return DSMILConfig(feats_size=int(feats_size), num_classes=int(num_classes),
+                       nonlinear="b_classifier.q.0.weight" in sd,
+                       passing_v="b_classifier.v.1.weight" in sd)
+
+
+def load_mil_pth(path: str, device: torch.device) -> Tuple[DSMIL, DSMILConfig, str]:
+    """Load an aggregator checkpoint; returns ``(model in eval mode, cfg,
+    model name)``. Only the DSMIL schema is ported; the ABMIL and pooling
+    schemas raise NotImplementedError through the registry."""
+    sd = load_state_dict(path)
+    if "pooling.mode" in sd:
+        get_model("maxpool" if float(sd["pooling.mode"]) > 0.5 else "meanpool")
+    if "b_classifier.attention_v.weight" in sd:
+        get_model("abmil")
+    sd = collections.OrderedDict(
+        (k.replace("i_classifier.fc.", "i_classifier.fc.0.")
+         if k in ("i_classifier.fc.weight", "i_classifier.fc.bias") else k, v)
+        for k, v in sd.items())
+    cfg = dsmil_config_from_state_dict(sd)
+    model = get_model("dsmil")(cfg, device)
+    model.load_state_dict(sd, strict=True)
+    return model.eval(), cfg, "dsmil"
