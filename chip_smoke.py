@@ -1,19 +1,28 @@
-"""Drive the PyTorch port's serving path once on one CUDA card (sm_90a).
+"""Drive the PyTorch port's serving and training paths once on one CUDA
+card (sm_90a).
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
-  1. device   -- nvidia-smi name/power limit, torch/CUDA versions; needs a
-                 CUDA card of capability (9, 0)
-  2. build    -- compile tpumil_torch/csrc/*.cu into build/tpumil_torch/
-  3. kernel   -- fused_instance_norm vs its plain PyTorch version at the five
-                 ResNet18 IN shapes (B=128), f32 and bf16, relu on/off, plus
-                 a constant plane; CUDA-event times of both
-  4. embedder -- ResNet18-IN f32 224^2 batch 128: kernel route vs plain route,
-                 20 kernel launches per forward
-  5. golden   -- the shipped aggregators vs the reference's golden outputs
-  6. serve    -- tpumil_torch.cli.serve on 127.0.0.1, concurrent clients on
-                 /v1/embed, /v1/predict_patches, /v1/predict, /v1/heatmap
+  1. device    -- nvidia-smi name/power limit, torch/CUDA versions; needs a
+                  CUDA card of capability (9, 0)
+  2. build     -- compile tpumil_torch/csrc/*.cu into build/tpumil_torch/
+  3. kernel    -- fused_instance_norm (K4) vs its plain PyTorch version at
+                  the five ResNet18 IN shapes (B=128), f32 and bf16, relu
+                  on/off, plus a constant plane; CUDA-event times of both
+  4. embedder  -- ResNet18-IN f32 224^2 batch 128: kernel route vs plain
+                  route, 20 kernel launches per forward
+  5. golden    -- the shipped aggregators vs the reference's golden outputs
+  6. serve     -- tpumil_torch.cli.serve on 127.0.0.1, concurrent clients on
+                  /v1/embed, /v1/predict_patches, /v1/predict, /v1/heatmap
+  7. pool      -- the attention-pool kernels K1, K2, K3 vs their plain
+                  versions at K=512, C=2, N up to 262144; CUDA-event times
+  8. train     -- BagTrainer at full width on seeded synthetic bags up to
+                  65529 instances: the kernel route against the eager route
+                  from the same init and seed; ms per bag step; the eager
+                  step's working set per instance
+  9. train_wsi -- python -m tpumil_torch.cli.train_wsi --device cuda on a
+                  synthetic TCGA-shaped CSV dataset, 5-fold-cv
 Then one JSON line of kernel results and, last, the device JSON line.
 """
 
@@ -37,6 +46,16 @@ IN_SHAPES = [(112, 64), (56, 64), (28, 128), (14, 256), (7, 512)]
 # orders (test_in_pallas.py's 2e-5). bf16: the output is rounded to bf16, so
 # the two may differ by one bf16 step (2^-7 relative).
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 2 ** -7)}
+# attention pool at the paper's width: ResNet18 features, TCGA lung classes
+K, C = 512, 2
+POOL_N = [(1000, 1000, True), (1000, 997, False), (65529, 65529, True),
+          (262144, 262144, True)]
+# |kernel - plain| <= rtol * max|plain| + 1e-6: sums over N rows in another
+# order (per-block partials merged in block order); the backward's products
+# of three sums get the looser bar
+POOL_RTOL = {"B": 1e-4, "m": 1e-5, "s": 1e-4, "s_red": 1e-4, "grad": 1e-3}
+TRAIN_N = [1500, 4000, 9000, 20000, 40000, 65529]
+TRAIN_EPOCHS = 3
 
 
 def log(msg: str) -> None:
@@ -375,6 +394,283 @@ def phase_serve(gpu: str) -> int:
         return launches
 
 
+def pool_err(name: str, got: torch.Tensor, want: torch.Tensor,
+             rtol: float) -> float:
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs().max().item()
+    bar = rtol * want.abs().max().item() + 1e-6
+    if err > bar:
+        raise AssertionError(f"{name}: max abs err {err:.3e} > {bar:.3e}")
+    return err
+
+
+def pool_inputs(n: int, nonlinear: bool, seed: int):
+    from tpumil_torch.ops.attention_pool import ATTN_DIM as D
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def t(*shape, scale):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    w = [t(D, K, scale=0.05), t(D, scale=0.1),
+         t(D, D, scale=0.1) if nonlinear else None,
+         t(D, scale=0.1) if nonlinear else None]
+    return t(n, K, scale=1.0), w, t(C, D, scale=0.5), t(C, K, scale=1.0)
+
+
+def phase_pool(gpu: str) -> dict:
+    """K1, K2, K3 against their plain versions; times at each N."""
+    from tpumil_torch.ops import attention_pool as ap
+
+    worst = {"fwd": 0.0, "bwd1": 0.0, "bwd2": 0.0}
+    times = {}
+    for i, (n, n_valid, nonlinear) in enumerate(POOL_N):
+        feats, w, qm, db = pool_inputs(n, nonlinear, i)
+        args = (feats, *w, qm)
+        out, m, s = ap.attention_pool_fwd(*args, n_valid, nonlinear)
+        torch.cuda.synchronize()
+        want = ap.attention_pool_plain(*args, n_valid, nonlinear)
+        # K1's reported error is its output B's; the residuals m and s are
+        # held to their bars too
+        e1, _, _ = [pool_err(f"K1 {nm} N={n}", g, x, POOL_RTOL[nm])
+                    for nm, g, x in zip(("B", "m", "s"), (out, m, s), want)]
+        _, wm, ws = want
+        red = ap.attention_pool_bwd1(*args, wm, ws, db, n_valid, nonlinear)
+        torch.cuda.synchronize()
+        want_red = ap.attention_pool_bwd1_plain(*args, wm, ws, db, n_valid,
+                                                nonlinear)
+        e2 = pool_err(f"K2 s_red N={n}", red, want_red, POOL_RTOL["s_red"])
+        grads = ap.attention_pool_bwd2(*args, wm, ws, db, want_red, n_valid,
+                                       nonlinear)
+        torch.cuda.synchronize()
+        want_g = ap.attention_pool_bwd2_plain(*args, wm, ws, db, want_red,
+                                              n_valid, nonlinear)
+        names = ("dF", "dW0", "db0", "dW2", "db2", "dq_max")
+        e3 = max(pool_err(f"K3 {nm} N={n}", g, x, POOL_RTOL["grad"])
+                 for nm, g, x in zip(names, grads, want_g)
+                 if nonlinear or nm not in ("dW2", "db2"))
+        if grads[0][n_valid:].any():
+            raise AssertionError("K3 wrote nonzero dF rows past n_valid")
+        del want_g
+        iters = 20 if n <= 65536 else 5
+        ms = {
+            "fwd": cuda_ms(lambda: ap.attention_pool_fwd(
+                *args, n_valid, nonlinear), iters),
+            "fwd_plain": cuda_ms(lambda: ap.attention_pool_plain(
+                *args, n_valid, nonlinear), iters),
+            "bwd1": cuda_ms(lambda: ap.attention_pool_bwd1(
+                *args, wm, ws, db, n_valid, nonlinear), iters),
+            "bwd1_plain": cuda_ms(lambda: ap.attention_pool_bwd1_plain(
+                *args, wm, ws, db, n_valid, nonlinear), iters),
+            "bwd2": cuda_ms(lambda: ap.attention_pool_bwd2(
+                *args, wm, ws, db, want_red, n_valid, nonlinear), iters),
+            "bwd2_plain": cuda_ms(lambda: ap.attention_pool_bwd2_plain(
+                *args, wm, ws, db, want_red, n_valid, nonlinear), iters),
+        }
+        for key, err in (("fwd", e1), ("bwd1", e2), ("bwd2", e3)):
+            worst[key] = max(worst[key], err)
+        if nonlinear:
+            times[n] = ms
+        log(f"[pool] N={n} n_valid={n_valid} K={K} C={C} nonlinear="
+            f"{int(nonlinear)}: max_abs_err K1 {e1:.3e} (rtol {POOL_RTOL['B']} "
+            f"of max|plain|), K2 {e2:.3e} (rtol {POOL_RTOL['s_red']}), K3 "
+            f"{e3:.3e} (rtol {POOL_RTOL['grad']}); ms kernel/plain: K1 "
+            f"{ms['fwd']:.3f}/{ms['fwd_plain']:.3f}, K2 {ms['bwd1']:.3f}/"
+            f"{ms['bwd1_plain']:.3f}, K3 {ms['bwd2']:.3f}/"
+            f"{ms['bwd2_plain']:.3f}; {gpu}")
+        del feats, w, qm, db, out, red, grads, want
+        torch.cuda.empty_cache()
+    return {"err": worst, "ms": times[65529]}
+
+
+def synthetic_bags(sizes, seed: int, k: int = K, c: int = C):
+    """Bags whose positives hold witness instances shifted along a class
+    direction, so that training has a signal to find."""
+    from tpumil_torch.data.bags import Bag
+
+    rng = np.random.default_rng(seed)
+    dirs = rng.standard_normal((c, k)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    bags = []
+    for i, n in enumerate(sizes):
+        x = rng.standard_normal((n, k), np.float32)
+        cls = i % c
+        x[:max(1, n // 10)] += 3.0 * dirs[cls]
+        bags.append(Bag(x, np.eye(c, dtype=np.float32)[cls], f"bag{i}"))
+    return bags
+
+
+def step_ms(trainer, model, opt, feats, label, fused: bool,
+            iters: int = 5) -> float:
+    """Host-clock ms of one bag step (forward, backward, Adam), synced."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    trainer._train_bags(model, opt, [(feats, label)] * 2, fused, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer._train_bags(model, opt, [(feats, label)] * iters, fused, gen)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def peak_bytes(fn) -> int:
+    """Peak allocated bytes of fn() above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_train(gpu: str) -> dict:
+    """The training path at full width: the kernel route against the eager
+    route, from the same init and host RNG seed."""
+    from tpumil_torch.data.device_store import DeviceBagStore
+    from tpumil_torch.models.dsmil import DSMILConfig
+    from tpumil_torch.ops import attention_pool as ap
+    from tpumil_torch.train.trainer import BagTrainer, memory_budget_bytes
+
+    dev = torch.device("cuda")
+    cfg = DSMILConfig(K, C)
+    store = DeviceBagStore(synthetic_bags(TRAIN_N, 3), device=dev)
+    runs, counts = {}, None
+    for route, thr in (("kernel", 16384), ("eager", None)):
+        trainer = BagTrainer(cfg, weight_decay=1e-3, fused_threshold=thr,
+                             device=dev)
+        model, opt = trainer.init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(7)
+        kernels = (ap.attention_pool_fwd, ap.attention_pool_bwd1,
+                   ap.attention_pool_bwd2)
+        for fn in kernels:  # the training path starts here
+            fn.launches = 0
+        t0 = time.perf_counter()
+        losses, scores = [], None
+        for epoch in range(TRAIN_EPOCHS):
+            model, opt, loss = trainer.train_epoch(model, opt, store,
+                                                   1e-4 / (epoch + 1), rng)
+            scores, _ = trainer.predict(model, store, rng=rng)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if route == "kernel":
+            counts = [fn.launches for fn in kernels]
+        runs[route] = (losses, {k: v.cpu() for k, v in
+                                model.state_dict().items()}, scores)
+        log(f"[train] {route} route (fused_threshold={thr}): "
+            f"{TRAIN_EPOCHS} epochs x {store.num_bags} bags of N in "
+            f"{TRAIN_N} + predict in {wall:.2f} s; losses "
+            f"{[f'{x:.6f}' for x in losses]}; fused dispatches "
+            f"{trainer.fused_dispatches}")
+        if route == "kernel" and trainer.fused_dispatches == 0:
+            raise AssertionError("the kernel route dispatched no bucket "
+                                 "to K1-K3")
+    (l_k, p_k, s_k), (l_e, p_e, s_e) = runs["kernel"], runs["eager"]
+    np.testing.assert_allclose(l_k, l_e, rtol=2e-4)
+    for name in p_k:
+        np.testing.assert_allclose(p_k[name].numpy(), p_e[name].numpy(),
+                                   rtol=1e-3, atol=2e-5, err_msg=name)
+    np.testing.assert_allclose(s_k, s_e, rtol=0, atol=1e-4)
+    if s_k.shape != (store.num_bags, C) or not np.isfinite(s_k).all():
+        raise AssertionError(f"bad scores {s_k.shape}")
+    if min(counts) == 0:
+        raise AssertionError(f"K1/K2/K3 launches on the training path: {counts}")
+    log(f"[train] kernel vs eager route: losses rtol 2e-4, params rtol 1e-3 "
+        f"atol 2e-5, scores atol 1e-4 -- all hold; max |d score| "
+        f"{np.abs(s_k - s_e).max():.3e}; K1/K2/K3 launches {counts}")
+
+    # one bag step at N = 65529, both routes, same bag
+    big = TRAIN_N.index(65529)
+    feats, label = store.bag(big), store.label(big)
+    trainer = BagTrainer(cfg, weight_decay=1e-3, fused_threshold=16384,
+                         device=dev)
+    model, opt = trainer.init(torch.Generator().manual_seed(0))
+    ms_k = step_ms(trainer, model, opt, feats, label, True)
+    ms_e = step_ms(trainer, model, opt, feats, label, False)
+    ms_k2 = step_ms(trainer, model, opt, feats, label, True)
+    ms_e2 = step_ms(trainer, model, opt, feats, label, False)
+    log(f"[train] one bag step at N=65529 (host clock, synced, mean of 5): "
+        f"kernel route {ms_k:.3f} / {ms_k2:.3f} ms, eager route "
+        f"{ms_e:.3f} / {ms_e2:.3f} ms; {gpu}")
+
+    # the eager step's and the eval forward's working set per instance: the
+    # slope of the peak over two bag sizes
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sizes = (16384, 65529)
+    step = [peak_bytes(lambda: trainer._train_bags(
+        model, opt, [(store.feats[:n], label)], False, gen)) for n in sizes]
+    fstep = [peak_bytes(lambda: trainer._train_bags(
+        model, opt, [(store.feats[:n], label)], True, gen)) for n in sizes]
+    ev = [peak_bytes(lambda: trainer._eval_bags(
+        model, [(store.feats[:n], label)], False, gen)) for n in sizes]
+    dn = sizes[1] - sizes[0]
+    slope = {"step": (step[1] - step[0]) / dn, "fused": (fstep[1] - fstep[0]) / dn,
+             "eval": (ev[1] - ev[0]) / dn}
+    log(f"[train] peak bytes above residents at N={sizes}: eager step {step}, "
+        f"kernel step {fstep}, eager eval {ev}; per instance: eager step "
+        f"{slope['step']:.0f} B, kernel step {slope['fused']:.0f} B, eval "
+        f"{slope['eval']:.0f} B (K={K}); {gpu}")
+    auto = BagTrainer(cfg, device=dev)
+    log(f"[train] auto route for the 65536 bucket beside this store "
+        f"({store.nbytes()} B): {'kernels' if auto._use_fused(65536, store.nbytes()) else 'eager'}"
+        f" (budget {memory_budget_bytes(dev)} B)")
+    return {"launches": counts}
+
+
+def phase_train_wsi() -> None:
+    """The CLI a user runs, as a subprocess on a synthetic TCGA-shaped
+    dataset in a temporary directory."""
+    from tpumil_torch.data.feature_store import write_bag_csv
+    from tpumil_torch.io import torch_ckpt
+
+    rng = np.random.default_rng(4)
+    sizes = rng.integers(200, 3001, 30).tolist()
+    bags = synthetic_bags(sizes, 5)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "datasets", "synth")
+        rows = []
+        for i, bag in enumerate(bags):
+            cls = int(np.argmax(bag.label))
+            path = os.path.join(root, f"class{cls}", f"bag{i}.csv")
+            write_bag_csv(bag.feats, path)
+            rows.append(f"{path},{cls}")
+        with open(os.path.join(root, "synth.csv"), "w") as f:
+            f.write("0,label\n" + "\n".join(rows) + "\n")
+        cmd = [sys.executable, "-m", "tpumil_torch.cli.train_wsi",
+               "--device", "cuda", "--dataset", "synth", "--num_classes",
+               str(C), "--feats_size", str(K), "--num_epochs", "2",
+               "--eval_scheme", "5-fold-cv"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=tmp, capture_output=True, text=True,
+                              timeout=600,
+                              env=dict(os.environ, PYTHONPATH=REPO))
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"train_wsi exited {proc.returncode}:\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        save = os.path.join(tmp, "weights")
+        (day,) = os.listdir(save)
+        save = os.path.join(save, day)
+        for ext in (".pth", ".json", ".done.json"):
+            found = [f for f in os.listdir(save)
+                     if f.startswith("fold_") and f.endswith(ext)
+                     and (ext == ".done.json" or not f.endswith(".done.json"))]
+            if len(found) != 5:
+                raise AssertionError(f"expected 5 fold_*{ext}, found {found}")
+        model, cfg, _ = torch_ckpt.load_mil_pth(os.path.join(save, "fold_0.pth"),
+                                                torch.device("cuda"))
+        with torch.inference_mode():
+            _, bag_logits, _, _ = model(torch.from_numpy(bags[0].feats).cuda())
+        if cfg.feats_size != K or cfg.num_classes != C \
+                or not torch.isfinite(bag_logits).all():
+            raise AssertionError(f"fold_0.pth: bad model {cfg}")
+        final = [l for l in proc.stdout.splitlines() if "Mean" in l]
+        log(f"[train_wsi] {' '.join(cmd[1:])}: exit 0 in {wall:.2f} s on "
+            f"{len(bags)} bags of 200-3000 x {K}; 5 fold_*.pth/.json/.done.json;"
+            f" fold_0.pth loads on the card; {'; '.join(final)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -385,12 +681,25 @@ def main() -> int:
     phase_embedder(gpu)
     phase_golden()
     launches = phase_serve(gpu)
-    print(json.dumps({"kernels": [{
+    pool = phase_pool(gpu)
+    train = phase_train(gpu)
+    phase_train_wsi()
+    kernels = [{
         "name": "fused_instance_norm", "route": "cuda",
         "source": "tpumil_torch/csrc/instance_norm.cu",
         "replaces": "tpumil/ops/in_pallas.py:49",
         "launches": launches, "max_abs_err": k4["max_abs_err"],
-        "ms": k4["ms"], "plain_ms": k4["plain_ms"]}]}), flush=True)
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"]}]
+    pool_src = "tpumil_torch/csrc/attention_pool.cu"
+    for (name, key, line), count in zip(
+            (("attention_pool_fwd", "fwd", 39), ("attention_pool_bwd1", "bwd1", 195),
+             ("attention_pool_bwd2", "bwd2", 216)), train["launches"]):
+        kernels.append({
+            "name": name, "route": "cuda", "source": pool_src,
+            "replaces": f"tpumil/ops/dsmil_pallas.py:{line}",
+            "launches": count, "max_abs_err": pool["err"][key],
+            "ms": pool["ms"][key], "plain_ms": pool["ms"][key + "_plain"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

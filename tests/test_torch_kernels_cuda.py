@@ -76,3 +76,159 @@ def test_instance_norm_kernel_rejects_bad_cuda_input(card):
     x = torch.zeros(2, 64, 4, 4, device=card)
     with pytest.raises(ValueError, match="NHWC-contiguous"):
         fused_instance_norm(x.permute(0, 2, 3, 1))
+
+
+# -- K1-K3: the DSMIL attention pool (csrc/attention_pool.cu) -----------------
+
+from tpumil_torch.ops import attention_pool as ap  # noqa: E402
+
+
+def _pool_inputs(device, n, n_valid, k, c, nonlinear, seed=0):
+    rng = np.random.default_rng(seed)
+    d = ap.ATTN_DIM
+
+    def t(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(device)
+
+    feats = t((n, k), 0.5)
+    w = [t((d, k), 0.1), t((d,), 0.1),
+         t((d, d), 0.1) if nonlinear else None,
+         t((d,), 0.1) if nonlinear else None]
+    return feats, w, t((c, d), 0.5), t((c, k), 1.0)
+
+
+def _close(name, got, want, rtol):
+    """|got - want| <= rtol * max|want| + 1e-6: sums over N rows taken in
+    another order (blocks of 32 rows, then a fixed-order merge)."""
+    if want is None:
+        return
+    err = (got - want).abs().max().item()
+    bar = rtol * want.abs().max().item() + 1e-6
+    assert torch.isfinite(got).all(), name
+    assert err <= bar, f"{name}: max abs err {err:.3e} > {bar:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nonlinear", [True, False])
+@pytest.mark.parametrize("n,n_valid,k,c", [(1000, 1000, 512, 2),
+                                           (384, 300, 96, 2),
+                                           (33, 33, 512, 8),
+                                           (1, 1, 64, 1),
+                                           (5000, 4097, 128, 3)])
+def test_attention_pool_kernels_match_plain(card, nonlinear, n, n_valid, k, c):
+    """K1, K2, K3 against their plain versions: ragged last tiles, padded
+    rows, one row, up to the 8-class bound."""
+    feats, w, qm, db = _pool_inputs(card, n, n_valid, k, c, nonlinear)
+    counts = (ap.attention_pool_fwd.launches, ap.attention_pool_bwd1.launches,
+              ap.attention_pool_bwd2.launches)
+    out, m, s = ap.attention_pool_fwd(feats, *w, qm, n_valid, nonlinear)
+    torch.cuda.synchronize()
+    want_out, want_m, want_s = ap.attention_pool_plain(feats, *w, qm, n_valid,
+                                                       nonlinear)
+    _close("B", out, want_out, 1e-4)
+    _close("m", m, want_m, 1e-5)
+    _close("s", s, want_s, 1e-4)
+    s_red = ap.attention_pool_bwd1(feats, *w, qm, want_m, want_s, db, n_valid,
+                                   nonlinear)
+    torch.cuda.synchronize()
+    want_red = ap.attention_pool_bwd1_plain(feats, *w, qm, want_m, want_s, db,
+                                            n_valid, nonlinear)
+    _close("s_red", s_red, want_red, 1e-4)
+    got = ap.attention_pool_bwd2(feats, *w, qm, want_m, want_s, db, want_red,
+                                 n_valid, nonlinear)
+    torch.cuda.synchronize()
+    want = ap.attention_pool_bwd2_plain(feats, *w, qm, want_m, want_s, db,
+                                        want_red, n_valid, nonlinear)
+    for name, g, x in zip(("dF", "dW0", "db0", "dW2", "db2", "dq_max"),
+                          got, want):
+        _close(name, g, x, 1e-3)
+    assert not got[0][n_valid:].any()
+    assert (ap.attention_pool_fwd.launches, ap.attention_pool_bwd1.launches,
+            ap.attention_pool_bwd2.launches) == tuple(x + 1 for x in counts)
+
+
+@pytest.mark.cuda
+def test_attention_pool_kernels_are_deterministic(card):
+    feats, w, qm, db = _pool_inputs(card, 20000, 19999, 512, 2, True, seed=1)
+    runs = []
+    for _ in range(2):
+        out, m, s = ap.attention_pool_fwd(feats, *w, qm, 19999)
+        red = ap.attention_pool_bwd1(feats, *w, qm, m, s, db, 19999)
+        runs.append((out, red) + ap.attention_pool_bwd2(
+            feats, *w, qm, m, s, db, red, 19999))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_trainable_pool_gradients_match_autograd(card):
+    """TrainablePool (K1 forward, K2 + K3 backward) against autograd through
+    the plain forward."""
+    feats, w, qm, db = _pool_inputs(card, 3000, 2900, 512, 2, True, seed=2)
+    leaves = [x.clone().requires_grad_(True) for x in [feats, *w, qm]]
+    out = ap.TrainablePool.apply(*leaves, 2900, True)
+    (out * db).sum().backward()
+    got = [x.grad for x in leaves]
+    ref = [x.clone().requires_grad_(True) for x in [feats, *w, qm]]
+    want_out, _, _ = ap.attention_pool_plain(*ref, 2900, True)
+    (want_out * db).sum().backward()
+    _close("B", out.detach(), want_out.detach(), 1e-4)
+    for g, x in zip(got, ref):
+        _close("grad", g, x.grad, 1e-3)
+
+
+@pytest.mark.cuda
+def test_attention_pool_rejects_bad_cuda_input(card):
+    feats, w, qm, _ = _pool_inputs(card, 64, 64, 128, 2, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ap.attention_pool_fwd(feats.T.contiguous().T, *w, qm, 64)
+    with pytest.raises(ValueError, match="n_valid"):
+        ap.attention_pool_fwd(feats, *w, qm, 65)
+    with pytest.raises(ValueError, match="classes"):
+        ap.attention_pool_fwd(feats, *w, torch.zeros(9, 128, device=card), 64)
+    with pytest.raises(ValueError, match="K % 4"):
+        ap.attention_pool_fwd(feats[:, :126].contiguous(),
+                              w[0][:, :126].contiguous(), *w[1:], qm, 64)
+
+
+# -- the training path on the card ---------------------------------------------
+
+@pytest.mark.cuda
+def test_trainer_paths_on_card(card):
+    """The list path (bags moved per chunk) and the store path agree on the
+    card, the kernel route matches the eager one, and patch and value
+    dropout draw from CUDA generators."""
+    from tpumil_torch.data.bags import Bag
+    from tpumil_torch.data.device_store import DeviceBagStore
+    from tpumil_torch.models.dsmil import DSMILConfig
+    from tpumil_torch.train.trainer import BagTrainer
+
+    rng = np.random.default_rng(3)
+    bags = [Bag(rng.standard_normal((n, 64), np.float32),
+                np.eye(2, dtype=np.float32)[i % 2], f"b{i}")
+            for i, n in enumerate([40, 90, 300, 1200])]  # buckets in order
+    store = DeviceBagStore(bags, device=card)
+    out = {}
+    for name, thr, data in (("list", None, bags), ("store", None, store),
+                            ("kernels", 256, store)):
+        tr = BagTrainer(DSMILConfig(64, 2), weight_decay=1e-3,
+                        fused_threshold=thr, device=card)
+        model, opt = tr.init(torch.Generator().manual_seed(0))
+        _, _, loss = tr.train_epoch(model, opt, data, 1e-3,
+                                    np.random.default_rng(1), shuffle=False)
+        out[name] = (loss, tr.predict(model, data)[0])
+        assert (tr.fused_dispatches > 0) == (thr is not None)
+    for name in ("store", "kernels"):
+        np.testing.assert_allclose(out[name][0], out["list"][0], rtol=2e-4)
+        np.testing.assert_allclose(out[name][1], out["list"][1], rtol=1e-4,
+                                   atol=1e-5)
+    for cfg, drop in ((DSMILConfig(64, 2), 0.3),
+                      (DSMILConfig(64, 2, passing_v=True, dropout_v=0.2), 0.0)):
+        tr = BagTrainer(cfg, dropout_patch=drop, device=card)
+        model, opt = tr.init(torch.Generator().manual_seed(0))
+        _, _, loss = tr.train_epoch(model, opt, store, 1e-3,
+                                    np.random.default_rng(2))
+        scores, _ = tr.predict(model, store)
+        assert np.isfinite(loss) and np.isfinite(scores).all()
+        assert tr.fused_dispatches == 0

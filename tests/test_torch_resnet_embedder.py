@@ -285,7 +285,22 @@ def test_bf16_tier_keeps_bf16_activations_and_f32_outputs():
     assert feats.dtype == torch.float32 and logits.dtype == torch.float32
     # parameters stay f32
     assert model.feature_extractor.conv1.weight.dtype == torch.float32
-    fj, _ = jemb.forward(params, jnp.asarray(_images(2)), cfg_j)
-    # bf16 rounding at every layer: a loose bar against the f32 oracle
-    np.testing.assert_allclose(feats.numpy(), np.asarray(fj), rtol=0.1,
-                               atol=0.1)
+    x = jnp.asarray(_images(2))
+    fj, _ = jemb.forward(params, x, cfg_j)
+    # The JAX package's own bf16 tier on the same weights and images rounds
+    # at the same points. bf16 CPU convolutions accumulate differently on
+    # different CPUs, so an elementwise bar against the f32 oracle depends on
+    # the host; the ratio of the two tiers' errors does not.
+    cfg_bf = dataclasses.replace(cfg_j, compute_dtype=jnp.bfloat16,
+                                 precision="default")
+    fj_bf, _ = jemb.forward(params, x, cfg_bf)
+    ref = np.asarray(fj, np.float64)
+    port_err = _rel_l2(feats.numpy(), ref)
+    jax_err = _rel_l2(np.asarray(fj_bf, np.float32), ref)
+    assert 0.0 < jax_err < 0.5, jax_err  # the JAX tier really is bf16
+    assert port_err <= 2.0 * jax_err, (port_err, jax_err)
+
+
+def _rel_l2(x, ref):
+    return float(np.linalg.norm(np.asarray(x, np.float64) - ref)
+                 / np.linalg.norm(ref))

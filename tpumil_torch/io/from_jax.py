@@ -1,8 +1,9 @@
-"""The JAX package's parameters -> the port's ``state_dict``s.
+"""The JAX package's parameters <-> the port's ``state_dict``s.
 
-Inputs are the JAX pytrees with numpy (or numpy-convertible) leaves; this
+The JAX side is pytrees with numpy (or numpy-convertible) leaves; this
 module imports neither ``jax`` nor ``tpumil``. It lets the parity tests run
-both packages on the same weights.
+both packages on the same weights and compare trained parameters leaf by
+leaf (:func:`dsmil_params`).
 """
 
 from __future__ import annotations
@@ -63,3 +64,28 @@ def dsmil_state_dict(params: Dict) -> "collections.OrderedDict":
     sd["b_classifier.fcc.weight"] = _t(params["fcc"]["w"])
     sd["b_classifier.fcc.bias"] = _t(params["fcc"]["b"])
     return sd
+
+
+def dsmil_params(sd) -> Dict:
+    """The reverse of :func:`dsmil_state_dict`: a ``DSMIL.state_dict`` ->
+    the JAX package's parameter pytree with numpy leaves."""
+    def a(key):
+        return sd[key].detach().cpu().numpy().astype(np.float32)
+
+    params = {"i_fc": {"w": a("i_classifier.fc.0.weight"),
+                       "b": a("i_classifier.fc.0.bias")},
+              "fcc": {"w": a("b_classifier.fcc.weight"),
+                      "b": a("b_classifier.fcc.bias")},
+              "v": {}}
+    if "b_classifier.q.0.weight" in sd:
+        params["q"] = {"w0": a("b_classifier.q.0.weight"),
+                       "b0": a("b_classifier.q.0.bias"),
+                       "w2": a("b_classifier.q.2.weight"),
+                       "b2": a("b_classifier.q.2.bias")}
+    else:
+        params["q"] = {"w": a("b_classifier.q.weight"),
+                       "b": a("b_classifier.q.bias")}
+    if "b_classifier.v.1.weight" in sd:
+        params["v"] = {"w": a("b_classifier.v.1.weight"),
+                       "b": a("b_classifier.v.1.bias")}
+    return params

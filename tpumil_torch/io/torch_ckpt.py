@@ -10,14 +10,15 @@ Aggregator schema (the reference's train_tcga.py ``torch.save``):
     b_classifier.fcc.{weight,bias}    [C, C, K], [C]
 
 Some loaders see ``i_classifier.fc.{weight,bias}``; both spellings load.
-The port's ``DSMIL`` module has exactly these ``state_dict`` keys, so a
-checkpoint loads with ``strict=True``.
+The port's ``DSMIL`` module has exactly these ``state_dict`` keys, in this
+order, so a checkpoint loads with ``strict=True`` and the module's
+``state_dict`` is what :func:`save_mil_pth` writes.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Tuple
+from typing import Mapping, Tuple, Union
 
 import torch
 
@@ -70,3 +71,16 @@ def load_mil_pth(path: str, device: torch.device) -> Tuple[DSMIL, DSMILConfig, s
     model = get_model("dsmil")(cfg, device)
     model.load_state_dict(sd, strict=True)
     return model.eval(), cfg, "dsmil"
+
+
+def save_mil_pth(params: Union[DSMIL, Mapping[str, torch.Tensor]], path: str,
+                 model: str = "dsmil") -> None:
+    """Write an aggregator checkpoint in the reference schema: f32 CPU
+    tensors under the module's ``state_dict`` keys, loadable by
+    :func:`load_mil_pth`, by the JAX package's loader and by the
+    reference. Only the DSMIL schema is ported."""
+    get_model(model)
+    sd = params.state_dict() if isinstance(params, torch.nn.Module) else params
+    torch.save(collections.OrderedDict(
+        (k, v.detach().to("cpu", torch.float32).contiguous().clone())
+        for k, v in sd.items()), path)

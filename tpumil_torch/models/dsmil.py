@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from tpumil_torch.ops.init import orthogonal_torch
 from tpumil_torch.ops.masked import masked_argmax, masked_max, masked_softmax
 from tpumil_torch.utils.device import disable_tf32
 
@@ -72,8 +73,11 @@ class _BClassifier(nn.Module):
 
 
 class DSMIL(nn.Module):
-    """Weights come from a checkpoint (io/torch_ckpt.load_mil_pth) or from
-    the JAX package's parameters (io/from_jax.dsmil_state_dict)."""
+    """Weights come from a checkpoint (io/torch_ckpt.load_mil_pth), from
+    the JAX package's parameters (io/from_jax.dsmil_state_dict) or from
+    :func:`init_params` / :func:`torch_default_init_params`. Built in eval
+    mode; a trainer switches to ``train()`` for its steps, where value
+    dropout (``passing_v`` only) draws from the generator it passes."""
 
     def __init__(self, cfg: DSMILConfig, device: torch.device):
         super().__init__()
@@ -81,10 +85,11 @@ class DSMIL(nn.Module):
         self.i_classifier = _IClassifier(cfg.feats_size, cfg.num_classes,
                                          device)
         self.b_classifier = _BClassifier(cfg, device)
-        self.eval()  # inference slice: value dropout stays off
+        self.eval()
 
     def forward(self, feats: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                ins_logits: Optional[torch.Tensor] = None
+                ins_logits: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """feats ``[B, N, K]`` or ``[N, K]``; mask ``[B, N]`` bool (True =
         real) or None; ins_logits optionally precomputed ``[B, N, C]``.
@@ -102,7 +107,7 @@ class DSMIL(nn.Module):
             else self.i_classifier.fc(f)
         bc = self.b_classifier
         q = bc.q(f)                                          # [B, N, D]
-        v = bc.v(f)                                          # [B, N, K]
+        v = self._values(f, dropout_generator)               # [B, N, K]
         crit = masked_argmax(c, mask, dim=1)                 # [B, C]
         q_max = torch.gather(q, 1, crit[..., None].expand(-1, -1, q.shape[-1]))
         a_logits = torch.einsum("bnd,bcd->bnc", q, q_max) \
@@ -114,6 +119,62 @@ class DSMIL(nn.Module):
         if squeeze:
             return c[0], bag_logits[0], attn[0], bemb[0]
         return c, bag_logits, attn, bemb
+
+    def _values(self, f: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        """V = feats, or Dropout -> Linear -> ReLU with ``passing_v``. The
+        dropout is drawn here from ``generator`` (in training mode only),
+        not by the module's ``nn.Dropout``, which stays for the checkpoint
+        layout."""
+        if not self.cfg.passing_v:
+            return f
+        v = self.b_classifier.v
+        p = self.cfg.dropout_v
+        if self.training and p > 0.0:
+            if generator is None:
+                raise ValueError("value dropout in training mode needs a "
+                                 "torch.Generator")
+            keep = torch.rand(f.shape, generator=generator,
+                              device=f.device) < 1.0 - p
+            f = torch.where(keep, f / (1.0 - p), 0.0)
+        return v[2](v[1](f))
+
+
+def _set(param: torch.Tensor, value: torch.Tensor) -> None:
+    with torch.no_grad():
+        param.copy_(value)
+
+
+def init_params(generator: torch.Generator, cfg: DSMILConfig,
+                device: torch.device = torch.device("cpu")) -> DSMIL:
+    """Orthogonal weights (``torch.nn.init.orthogonal_`` orientation) and
+    zero biases, the reference's init, drawn from ``generator`` (on the
+    CPU) in the JAX package's order: i_fc, fcc, q, v."""
+    model = DSMIL(cfg, device)
+    bc = model.b_classifier
+    q = (bc.q[0], bc.q[2]) if cfg.nonlinear else (bc.q,)
+    v = (bc.v[1],) if cfg.passing_v else ()
+    for layer in (model.i_classifier.fc[0], bc.fcc, *q, *v):
+        _set(layer.weight,
+             orthogonal_torch(generator, tuple(layer.weight.shape)))
+        _set(layer.bias, torch.zeros_like(layer.bias))
+    return model
+
+
+def torch_default_init_params(generator: torch.Generator, cfg: DSMILConfig,
+                              device: torch.device = torch.device("cpu")
+                              ) -> DSMIL:
+    """``nn.Linear``/``nn.Conv1d``'s default init, U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) for weights and biases (what the reference's
+    train_mil.py trains with), drawn from ``generator`` (on the CPU)."""
+    model = DSMIL(cfg, device)
+    for layer in model.modules():
+        if isinstance(layer, (nn.Linear, nn.Conv1d)):
+            bound = 1.0 / math.sqrt(math.prod(layer.weight.shape[1:]))
+            for param in (layer.weight, layer.bias):
+                u = torch.rand(param.shape, generator=generator)
+                _set(param, (2.0 * u - 1.0) * bound)
+    return model
 
 
 def max_instance_logits(ins_logits: torch.Tensor,

@@ -17,6 +17,6 @@ def get_model(name: str):
     if name in _LATER:
         raise NotImplementedError(
             f"MIL model {name!r} is not ported to tpumil_torch yet; it comes "
-            "with the training slice (ROADMAP.md, Queue 1, slice 2)")
+            "with a later slice (ROADMAP.md, Queue 1)")
     raise ValueError(f"unknown MIL model {name!r}; choose from "
                      f"{sorted(_MODELS) + list(_LATER)}")

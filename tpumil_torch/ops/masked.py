@@ -35,6 +35,17 @@ def masked_argmax(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int):
     return _fill(x, mask, NEG_INF).argmax(dim=dim)
 
 
+def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int):
+    """Mean over ``dim`` counting only real entries; all-padding slices
+    give 0."""
+    if mask is None:
+        return x.mean(dim=dim)
+    if mask.dim() == x.dim() - 1:
+        mask = mask.unsqueeze(-1)
+    m = mask.expand(x.shape).to(x.dtype)
+    return (x * m).sum(dim=dim) / m.sum(dim=dim).clamp_min(1.0)
+
+
 def masked_softmax(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int):
     """Softmax over ``dim``; padded entries get exactly 0 weight."""
     x = _fill(x, mask, NEG_INF)

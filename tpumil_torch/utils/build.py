@@ -1,8 +1,9 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``tpumil_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-ONE shared library with a plain C interface, loaded with ``ctypes``. No
-source includes PyTorch's headers, so a build takes seconds, not minutes.
+Every ``tpumil_torch/csrc/*.cu`` is compiled by its own ``nvcc`` for
+``sm_90a`` (all started together), and the objects are linked into ONE
+shared library with a plain C interface, loaded with ``ctypes``. No source
+includes PyTorch's headers, so a build takes seconds, not minutes.
 The library lands in ``build/tpumil_torch/`` at the repo root, named by a
 hash of the sources' contents: a rebuild happens only when a source changes.
 
@@ -24,8 +25,8 @@ from typing import List, Optional, Tuple
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "tpumil_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -65,14 +66,30 @@ def build(verbose: bool = False) -> Tuple[Path, float, str]:
         return lib_path, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, srcs)]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+    nvcc = nvcc_path()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    try:
+        failed = [str(src) for src, proc in zip(srcs, procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (rc={proc.returncode}):\n{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n{log}")
     os.replace(tmp, lib_path)  # atomic: another process never sees half a file
     return lib_path, seconds, log
 
@@ -89,5 +106,15 @@ def load_library() -> ctypes.CDLL:
             lib.tpumil_instance_norm.argtypes = [p, p, i, i, i, i, i,
                                                  ctypes.c_float, p]
             lib.tpumil_instance_norm.restype = i
+            lib.tpumil_attention_pool_grid.argtypes = [i, i, i, i, i, i]
+            lib.tpumil_attention_pool_grid.restype = i
+            lib.tpumil_attention_pool_bwd2_size.argtypes = [i, i]
+            lib.tpumil_attention_pool_bwd2_size.restype = ctypes.c_longlong
+            lib.tpumil_attention_pool_fwd.argtypes = [p] * 6 + [i] * 6 + [p] * 5
+            lib.tpumil_attention_pool_fwd.restype = i
+            lib.tpumil_attention_pool_bwd1.argtypes = [p] * 9 + [i] * 6 + [p] * 3
+            lib.tpumil_attention_pool_bwd1.restype = i
+            lib.tpumil_attention_pool_bwd2.argtypes = [p] * 10 + [i] * 6 + [p] * 4
+            lib.tpumil_attention_pool_bwd2.restype = i
             _lib = lib
         return _lib
