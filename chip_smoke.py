@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and training paths once on one CUDA
-card (sm_90a).
+"""Drive the PyTorch port's serving, training and feature-extraction
+paths once on one CUDA card (sm_90a).
 
     python3 chip_smoke.py
 
@@ -11,7 +11,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   the five ResNet18 IN shapes (B=128), f32 and bf16, relu
                   on/off, plus a constant plane; CUDA-event times of both
   4. embedder  -- ResNet18-IN f32 224^2 batch 128: kernel route vs plain
-                  route, 20 kernel launches per forward
+                  route, 19 K4 launches and 1 K5 launch per forward
   5. golden    -- the shipped aggregators vs the reference's golden outputs
   6. serve     -- tpumil_torch.cli.serve on 127.0.0.1, concurrent clients on
                   /v1/embed, /v1/predict_patches, /v1/predict, /v1/heatmap
@@ -23,7 +23,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   step's working set per instance
   9. train_wsi -- python -m tpumil_torch.cli.train_wsi --device cuda on a
                   synthetic TCGA-shaped CSV dataset, 5-fold-cv
-Then one JSON line of kernel results and, last, the device JSON line.
+ 10. stem      -- the fused stem (K5) vs its plain version at B=128 224^2,
+                  f32 and bf16, blank tiles, a bitwise rerun; CUDA-event
+                  times of K5, the plain version and the conv route (cuDNN
+                  conv, K4, max pool: the stem of other inputs)
+ 11. compute_feats -- a JPEG tree of 2 classes x 3 bags x 256 patches:
+                  python -m tpumil_torch.cli.compute_feats --device cuda,
+                  compute_feats in-process with the stem in K5 and, in
+                  turns, in the conv route, then train_wsi on the CSVs
+Then one JSON line of kernel results (each with its bound: the larger of
+its bytes over the memory rate and its operations over the peak rate of
+their type) and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B = 128
@@ -56,6 +67,26 @@ POOL_N = [(1000, 1000, True), (1000, 997, False), (65529, 65529, True),
 POOL_RTOL = {"B": 1e-4, "m": 1e-5, "s": 1e-4, "s_red": 1e-4, "grad": 1e-3}
 TRAIN_N = [1500, 4000, 9000, 20000, 40000, 65529]
 TRAIN_EPOCHS = 3
+# the compute_feats tree: classes x bags per class x patches of 224^2
+CF_CLASSES, CF_BAGS, CF_PATCHES = 2, 3, 256
+# H100 SXM published peaks at 700 W (NVIDIA's data sheet, dense): memory
+# bytes/s, and flop/s by operand type (f32 on the CUDA cores, bf16 on the
+# tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+
+def bound(nbytes: float, flops: float, dtype=torch.float32):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move ``nbytes`` and do ``flops`` operations of ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def log(msg: str) -> None:
@@ -99,6 +130,19 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     return err.max().item()
 
 
+def conv_route_stem(x: torch.Tensor, w7: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """The stem as ResNet runs it for inputs K5 does not take (cuDNN conv,
+    K4 with ReLU, max pool), with fused_stem's NHWC/HWIO signature: the
+    yardstick K5 replaces."""
+    from tpumil_torch.models import resnet
+
+    h = resnet._conv(x.permute(0, 3, 1, 2).to(dtype), w7.permute(3, 2, 0, 1),
+                     2, dtype)
+    return F.max_pool2d(resnet._instance_norm(h, True), 3, 2, 1) \
+        .permute(0, 2, 3, 1)
+
+
 def phase_device() -> str:
     gpu = gpu_line()
     log(f"[device] nvidia-smi: {gpu}")
@@ -121,8 +165,11 @@ def phase_build() -> None:
     log(f"[build] nvcc {' '.join(build.NVCC_FLAGS)} {' '.join(srcs)} -> {rel} "
         f"in {seconds:.2f} s" + (" (cached)" if seconds == 0 else ""))
     for line in compiler_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   ptxas: {line.strip()}")
+        if "Function properties for" in line:
+            # the mangled kernel name, its template arguments after it
+            log(f"[build]   ptxas: {line.split('for', 1)[1].strip()[:72]}")
+        elif "registers" in line or "spill" in line:
+            log(f"[build]   ptxas:   {line.strip()}")
     build.load_library()
 
 
@@ -132,7 +179,8 @@ def phase_kernel(gpu: str) -> dict:
 
     rng = np.random.default_rng(0)
     max_err_f32 = 0.0
-    ms_total = plain_total = 0.0
+    ms_total = plain_total = lib_total = norelu_total = 0.0
+    f32_bytes = f32_flops = 0
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
         for h, c in IN_SHAPES:
@@ -152,12 +200,22 @@ def phase_kernel(gpu: str) -> dict:
                 if dtype == torch.float32 and relu:
                     ms_total += ms
                     plain_total += plain_ms
-                nbytes = 2 * x.numel() * x.element_size()  # one read + one write
+                elif dtype == torch.float32:
+                    norelu_total += ms
+                io = 2 * nbytes(x)  # one read + one write
                 log(f"[kernel] IN [{B},{h},{h},{c}] {str(dtype)[6:]} "
                     f"relu={int(relu)}: max_abs_err {err:.3e} (atol {atol}, "
                     f"rtol {rtol:.3g}); kernel {ms:.4f} ms "
-                    f"({nbytes / ms / 1e6:.0f} GB/s at 1R+1W), plain "
+                    f"({io / ms / 1e6:.0f} GB/s at 1R+1W), plain "
                     f"{plain_ms:.4f} ms; {gpu}")
+            if dtype == torch.float32:
+                # the one library call for the same function (relu off); the
+                # port never calls it
+                lib_total += cuda_ms(
+                    lambda: F.instance_norm(x.permute(0, 3, 1, 2)), 20)
+                f32_bytes += 2 * nbytes(x)
+                # per element: mean 1, variance 3, normalize 2, relu 1
+                f32_flops += 7 * x.numel()
             del x, got, want
     # blank-tile planes: exactly constant, and constant + 1e-4 noise
     x = np.full((4, 56, 56, 64), 3.7, np.float32)
@@ -171,39 +229,46 @@ def phase_kernel(gpu: str) -> dict:
                       2e-2, 0.0)
     log(f"[kernel] constant plane -> exact zeros; near-constant plane "
         f"max_abs_err {err:.3e} (atol 2e-2)")
+    bound_ms, bound_by = bound(f32_bytes, f32_flops)
     log(f"[kernel] sum over the five shapes (f32, relu): kernel "
-        f"{ms_total:.4f} ms, plain {plain_total:.4f} ms; {gpu}")
-    return {"max_abs_err": max_err_f32, "ms": ms_total, "plain_ms": plain_total}
+        f"{ms_total:.4f} ms, plain {plain_total:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {f32_bytes} B at 1R+1W); relu off: "
+        f"kernel {norelu_total:.4f} ms, F.instance_norm {lib_total:.4f} ms; "
+        f"{gpu}")
+    return {"max_abs_err": max_err_f32, "ms": ms_total, "plain_ms": plain_total,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_total}
 
 
 def phase_embedder(gpu: str) -> None:
     from tpumil_torch.models import embedder, resnet
-    from tpumil_torch.ops import instance_norm
+    from tpumil_torch.ops import instance_norm, stem
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     imgs = torch.from_numpy(
         rng.integers(0, 256, (B, 224, 224, 3), np.uint8)).to(dev)
-    fn = instance_norm.fused_instance_norm
+    k4, k5 = instance_norm.fused_instance_norm, stem.fused_stem
     for precision in ("f32", "bf16"):
         cfg = embedder.EmbedderConfig(backbone="resnet18", norm="instance",
                                       precision=precision)
         model = embedder.init_params(0, cfg, dev)
         with torch.inference_mode():
-            fn.launches = 0
+            k4.launches = k5.launches = 0
             feats_k, _ = model(imgs)
             torch.cuda.synchronize()
-            per_fwd = fn.launches
+            per_fwd = (k4.launches, k5.launches)
             ms_k = cuda_ms(lambda: model(imgs), 10)
             resnet.fused_instance_norm = instance_norm.instance_norm_plain
+            resnet.fused_stem = stem.stem_plain
             try:
                 feats_p, _ = model(imgs)
                 ms_p = cuda_ms(lambda: model(imgs), 10)
             finally:
-                resnet.fused_instance_norm = fn
-        if per_fwd != 20:
-            raise AssertionError(f"expected 20 IN kernel launches per ResNet18 "
-                                 f"forward, counted {per_fwd}")
+                resnet.fused_instance_norm, resnet.fused_stem = k4, k5
+        if per_fwd != (19, 1):
+            raise AssertionError(f"expected 19 K4 and 1 K5 launches per "
+                                 f"ResNet18 forward, counted {per_fwd}")
         if feats_k.shape != (B, 512) or not torch.isfinite(feats_k).all():
             raise AssertionError(f"bad features {tuple(feats_k.shape)}")
         err = (feats_k - feats_p).abs().max().item()
@@ -221,8 +286,8 @@ def phase_embedder(gpu: str) -> None:
                                   feats_cpu, 1e-4, 1e-4)
             log(f"[embedder] resnet18-IN f32: card vs the CPU path on 4 "
                 f"patches max_abs_err {cpu_err:.3e} (atol 1e-4, rtol 1e-4)")
-        log(f"[embedder] resnet18-IN {precision} 224^2 B={B}: {per_fwd} kernel "
-            f"launches/forward; kernel route {ms_k:.3f} ms "
+        log(f"[embedder] resnet18-IN {precision} 224^2 B={B}: K4/K5 launches "
+            f"per forward {per_fwd}; kernel route {ms_k:.3f} ms "
             f"({B / ms_k * 1e3:.0f} patches/s), plain route {ms_p:.3f} ms "
             f"({B / ms_p * 1e3:.0f} patches/s); feature max_abs_err {err:.3e}"
             f"{' (atol 1e-4, rtol 1e-4)' if precision == 'f32' else ''}; {gpu}")
@@ -259,6 +324,7 @@ def phase_serve(gpu: str) -> int:
     from tpumil_torch.infer.client import ServingClient
     from tpumil_torch.models import embedder
     from tpumil_torch.ops.instance_norm import fused_instance_norm
+    from tpumil_torch.ops.stem import fused_stem
 
     rng = np.random.default_rng(2)
     n_embed, n_pp = 300, 200
@@ -279,7 +345,8 @@ def phase_serve(gpu: str) -> int:
             os.path.join(REPO, "tests", "data", "tcga_aggregator.pth"),
             "--num_classes", "2", "--device", "cuda", "--precision", "f32",
             "--batch_size", str(B)])
-        fused_instance_norm.launches = 0  # the main path starts here
+        # the serving path starts here
+        fused_instance_norm.launches = fused_stem.launches = 0
         t0 = time.perf_counter()
         service = serve.build_service(args)
         log(f"[serve] service built (load + warm-up) in "
@@ -337,6 +404,7 @@ def phase_serve(gpu: str) -> int:
             stats = client.stats()
             health = client.health()
             launches = fused_instance_norm.launches
+            k5_launches = fused_stem.launches
         finally:
             server.shutdown()
             server.server_close()
@@ -378,13 +446,14 @@ def phase_serve(gpu: str) -> int:
             raise AssertionError(f"/stats reports errors: {stats}")
         if health["backend"] != "cuda":
             raise AssertionError(f"/healthz backend {health['backend']}")
-        if launches == 0:
-            raise AssertionError("the serving path launched no IN kernel")
+        if launches == 0 or k5_launches == 0:
+            raise AssertionError(f"the serving path launched K4 {launches} and "
+                                 f"K5 {k5_launches} times")
         log(f"[serve] embed rows vs in-process forward: max_abs_err "
             f"{np.abs(feats - direct).max():.3e} (atol 1e-5), bitwise equal: "
             f"{bitwise}")
         log(f"[serve] all 4 routes answered 200; /stats {json.dumps(stats)}; "
-            f"IN kernel launches {launches}")
+            f"K4 launches {launches}, K5 launches {k5_launches}")
         lat = ", ".join(f"{k} {latency[k] * 1e3:.1f} ms" for k in calls)
         log(f"[serve] concurrent latencies: {lat}; wall {wall * 1e3:.1f} ms "
             f"({n_embed} patches/embed: {n_embed / latency['embed']:.0f} "
@@ -420,12 +489,26 @@ def pool_inputs(n: int, nonlinear: bool, seed: int):
     return t(n, K, scale=1.0), w, t(C, D, scale=0.5), t(C, K, scale=1.0)
 
 
+def pool_flops(n: int, d: int, nonlinear: bool) -> dict:
+    """Operations of K1, K2, K3 on one bag of n x K instances."""
+    fwd = 2 * n * K * d + (2 * n * d * d if nonlinear else 0) \
+        + 2 * n * C * d                      # q-MLP, logits against q_max
+    return {
+        "fwd": fwd + 2 * n * C * K,          # + B = A^T f
+        "bwd1": fwd + 2 * n * C * K,         # + f . dB
+        # + dF's A dB and dA's f . dB, dlogits -> dq and dq_max, the MLP's
+        # backward (dW0 and dF through W0; dW2 and dh through W2)
+        "bwd2": fwd + 4 * n * C * K + 4 * n * C * d + 4 * n * K * d
+        + (4 * n * d * d if nonlinear else 0)}
+
+
 def phase_pool(gpu: str) -> dict:
-    """K1, K2, K3 against their plain versions; times at each N."""
+    """K1, K2, K3 against their plain versions; times and bounds at each
+    N."""
     from tpumil_torch.ops import attention_pool as ap
 
     worst = {"fwd": 0.0, "bwd1": 0.0, "bwd2": 0.0}
-    times = {}
+    times, bounds = {}, {}
     for i, (n, n_valid, nonlinear) in enumerate(POOL_N):
         feats, w, qm, db = pool_inputs(n, nonlinear, i)
         args = (feats, *w, qm)
@@ -471,8 +554,17 @@ def phase_pool(gpu: str) -> dict:
         }
         for key, err in (("fwd", e1), ("bwd1", e2), ("bwd2", e3)):
             worst[key] = max(worst[key], err)
+        flops = pool_flops(n_valid, ap.ATTN_DIM, nonlinear)
+        io = {"fwd": nbytes(*args, out, m, s),
+              "bwd1": nbytes(*args, wm, ws, db, red),
+              "bwd2": nbytes(*args, wm, ws, db, want_red, *grads)}
+        bd = {key: bound(io[key], flops[key]) for key in flops}
         if nonlinear:
-            times[n] = ms
+            times[n], bounds[n] = ms, bd
+        log(f"[pool] N={n} bound ms (by): " + ", ".join(
+            f"{name} {bd[key][0]:.4f} ({bd[key][1]}: {flops[key]} flop, "
+            f"{io[key]} B)" for name, key in (("K1", "fwd"), ("K2", "bwd1"),
+                                                ("K3", "bwd2"))))
         log(f"[pool] N={n} n_valid={n_valid} K={K} C={C} nonlinear="
             f"{int(nonlinear)}: max_abs_err K1 {e1:.3e} (rtol {POOL_RTOL['B']} "
             f"of max|plain|), K2 {e2:.3e} (rtol {POOL_RTOL['s_red']}), K3 "
@@ -482,7 +574,7 @@ def phase_pool(gpu: str) -> dict:
             f"{ms['bwd2_plain']:.3f}; {gpu}")
         del feats, w, qm, db, out, red, grads, want
         torch.cuda.empty_cache()
-    return {"err": worst, "ms": times[65529]}
+    return {"err": worst, "ms": times[65529], "bound": bounds[65529]}
 
 
 def synthetic_bags(sizes, seed: int, k: int = K, c: int = C):
@@ -671,6 +763,220 @@ def phase_train_wsi() -> None:
             f" fold_0.pth loads on the card; {'; '.join(final)}")
 
 
+def stem_inputs(b: int, seed: int):
+    """[0, 1) images and kaiming-scaled HWIO stem weights on the card."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.random((b, 224, 224, 3), np.float32)).cuda()
+    w = rng.standard_normal((7, 7, 3, 64)) * np.sqrt(2.0 / (7 * 7 * 64))
+    return x, torch.from_numpy(w.astype(np.float32)).cuda()
+
+
+def stem_err(name: str, x, w7, got, want, dtype) -> float:
+    """|kernel - plain| within the bar. f32: atol = rtol = 1e-4
+    (test_stem_pallas.py's bar; sums in another order). bf16: one bf16 step
+    of the conv output in normalized units (|x| * inv <= |out| + |mean| *
+    inv per (image, channel); a pool window's maximum moves by at most that
+    step) plus one bf16 step of the output."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs()
+    if dtype == torch.float32:
+        bar = 1e-4 + 1e-4 * want.abs()
+    else:
+        conv = F.conv2d(x.permute(0, 3, 1, 2).to(dtype),
+                        w7.permute(3, 2, 0, 1).to(dtype), stride=2,
+                        padding=3).float()
+        inv = torch.rsqrt(conv.var(dim=(2, 3), unbiased=False) + 1e-5)
+        shift = (conv.mean(dim=(2, 3)).abs() * inv)[:, None, None, :]
+        bar = 2 ** -7 * (2 * want.abs() + shift) + 1e-6
+    bad = err > bar
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} elements out of the "
+                             f"bar (max abs err {err.max().item():.3e})")
+    return err.max().item()
+
+
+def phase_stem(gpu: str) -> dict:
+    """K5 against its plain version at the compute_feats batch; times of the
+    kernel, the plain version and the conv route (cuDNN conv, K4, max
+    pool)."""
+    from tpumil_torch.ops.stem import fused_stem, stem_plain
+    from tpumil_torch.utils.device import disable_tf32
+
+    disable_tf32()
+    x, w7 = stem_inputs(B, 5)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        got = fused_stem(x, w7, dtype)
+        torch.cuda.synchronize()
+        want = stem_plain(x, w7, dtype)
+        err = stem_err(f"K5 {name}", x, w7, got, want, dtype)
+        if not torch.equal(fused_stem(x, w7, dtype), got):
+            raise AssertionError(f"K5 {name}: a rerun is not bitwise equal")
+        del want
+        ms = cuda_ms(lambda: fused_stem(x, w7, dtype), 20)
+        plain_ms = cuda_ms(lambda: stem_plain(x, w7, dtype), 10)
+        route_ms = cuda_ms(lambda: conv_route_stem(x, w7, dtype), 20)
+        ms2 = cuda_ms(lambda: fused_stem(x, w7, dtype), 20)
+        flops = 2 * B * 112 * 112 * 64 * 7 * 7 * 3  # the conv; the rest < 1%
+        io = nbytes(x, w7, got)
+        bound_ms, bound_by = bound(io, flops, dtype)
+        out[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"[stem] K5 {name} [{B},224,224,3] f32 in -> [{B},56,56,64] "
+            f"{name}: max_abs_err {err:.3e}, rerun bitwise equal; kernel "
+            f"{ms:.4f} / {ms2:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, conv route (cuDNN conv + K4 + max pool) "
+            f"{route_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{flops} flop, {io} B); {gpu}")
+        del got
+    torch.cuda.empty_cache()
+    # blank tissue: black (a constant conv plane: exact zeros), white (not
+    # constant: the zero padding reaches the border), near-white, near-black
+    noise = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 3, (1, 224, 224, 3)).astype(np.float32) / 255).cuda()
+    blank = torch.cat([torch.zeros_like(noise), torch.ones_like(noise),
+                       1 - noise, noise])
+    for dtype in (torch.float32, torch.bfloat16):
+        got = fused_stem(blank, w7, dtype)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], torch.zeros_like(got[0])):
+            raise AssertionError("K5: a black image must give exact zeros")
+        err = stem_err(f"K5 blank {dtype}", blank, w7, got,
+                       stem_plain(blank, w7, dtype), dtype)
+        log(f"[stem] {str(dtype)[6:]} black -> exact zeros; white, "
+            f"near-white, near-black max_abs_err {err:.3e}")
+    return out
+
+
+def run_cli(module: str, args, cwd: str) -> str:
+    cmd = [sys.executable, "-m", module, *args]
+    proc = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0:
+        raise RuntimeError(f"{module} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def phase_compute_feats(gpu: str) -> int:
+    """The feature-extraction path: the CLI a user runs, then the same
+    extraction in-process, its stem in K5, against the same net with the
+    conv-route stem, then train_wsi on the CSVs the CLI wrote."""
+    from tpumil_torch.data.feature_store import read_bag_csv, read_master_csv
+    from tpumil_torch.data.patches import (PatchBatchLoader, list_bag_dirs,
+                                           list_patches)
+    from tpumil_torch.infer.features import (ExtractorStats, FeatureExtractor,
+                                             compute_feats)
+    from tpumil_torch.models import embedder, resnet
+    from tpumil_torch.ops.instance_norm import fused_instance_norm
+    from tpumil_torch.ops.stem import fused_stem
+    from tools.extract_profile import write_tree
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_tree(os.path.join(tmp, "WSI"), CF_CLASSES * CF_BAGS, CF_PATCHES,
+                   224, 7)
+        n = CF_CLASSES * CF_BAGS * CF_PATCHES
+        model = embedder.init_params(0, embedder.EmbedderConfig(),
+                                     torch.device("cpu"))
+        torch.save(embedder.export_embedder_state_dict(model),
+                   os.path.join(tmp, "model.pth"))
+        t0 = time.perf_counter()
+        out = run_cli("tpumil_torch.cli.compute_feats",
+                      ["--device", "cuda", "--dataset", "synth", "--weights",
+                       "model.pth", "--num_classes", str(C)], tmp)
+        wall = time.perf_counter() - t0
+        (throughput,) = [l for l in out.splitlines()
+                         if l.startswith("Throughput")]
+        log(f"[compute_feats] python -m tpumil_torch.cli.compute_feats "
+            f"--device cuda (f32, batch {B}) on {n} patches of 224^2: exit 0 "
+            f"in {wall:.2f} s; {throughput}; {gpu}")
+
+        # in-process, from the embedder the CLI exported, in the CLI's
+        # configuration; in turns the stem in K5 (the path whose launches
+        # are counted: the first K5 run) and in the conv route
+        bag_dirs = list_bag_dirs(os.path.join(tmp, "WSI"), "synth", "single")
+        paths = [p for d in bag_dirs for p in list_patches(d)]
+        ckpt = os.path.join(tmp, "embedder", "synth", "embedder.pth")
+        ex = FeatureExtractor(embedder.load_simclr_checkpoint(
+            ckpt, embedder.EmbedderConfig(space_to_depth=True), dev), B, 224, 8)
+
+        def on(route, fn):
+            """fn() with the stem in K5 or in the conv route."""
+            if route == "conv":
+                resnet.fused_stem = conv_route_stem
+            try:
+                return fn()
+            finally:
+                resnet.fused_stem = fused_stem
+
+        counts, rates = {}, {}
+        for route in ("k5", "conv", "conv", "k5"):
+            ex.stats = ExtractorStats()
+            fused_stem.launches = fused_instance_norm.launches = 0
+            on(route, lambda: compute_feats(bag_dirs, ex,
+                                            os.path.join(tmp, route)))
+            torch.cuda.synchronize()
+            counts.setdefault(route, (fused_stem.launches,
+                                      fused_instance_norm.launches))
+            rates.setdefault(route, []).append(ex.stats.patches_per_sec)
+        feats = {route: on(route, lambda: ex.embed_paths(paths))
+                 for route in ("k5", "conv")}
+        names = {"k5": "K5 stem (the path)", "conv": "conv-route stem"}
+        for route in ("k5", "conv"):
+            log(f"[compute_feats] in-process compute_feats, {names[route]}: "
+                f"{' / '.join(f'{r:.1f}' for r in rates[route])} patches/s "
+                f"over {n} patches; K5/K4 launches {counts[route]}; {gpu}")
+        # the host decode alone, as the extractor's loader runs it
+        t0 = time.perf_counter()
+        for _ in PatchBatchLoader(paths, B, 224, 8):
+            pass
+        log(f"[compute_feats] host JPEG decode alone (8 threads, batch {B}): "
+            f"{n / (time.perf_counter() - t0):.1f} patches/s on "
+            f"{os.cpu_count()} cores")
+        k5, k4 = counts["k5"]
+        if k5 == 0 or k4 == 0 or counts["conv"][0] != 0:
+            raise AssertionError(f"K5/K4 launches: the path {counts['k5']}, "
+                                 f"the conv route {counts['conv']}")
+        got, want = feats["k5"], feats["conv"]
+        if got.shape != (n, 512) or not np.isfinite(got).all():
+            raise AssertionError(f"bad features {got.shape}")
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        # the CLI's CSVs against the in-process path's: %.4f text, so one
+        # last-digit flip on top of the 1e-4 bar
+        csv_err = 0.0
+        for d in bag_dirs:
+            rel = os.path.join(*d.split(os.path.sep)[-2:]) + ".csv"
+            a = read_bag_csv(os.path.join(tmp, "datasets", "synth", rel))
+            b = read_bag_csv(os.path.join(tmp, "k5", rel))
+            np.testing.assert_allclose(b, a, rtol=0, atol=1.5e-4)
+            csv_err = max(csv_err, float(np.abs(a - b).max()))
+        master = read_master_csv(os.path.join(tmp, "datasets", "synth",
+                                              "synth.csv"))
+        if len(master) != CF_CLASSES * CF_BAGS:
+            raise AssertionError(f"master CSV has {len(master)} rows")
+        log(f"[compute_feats] K5 stem vs conv-route stem features: max_abs_err "
+            f"{np.abs(got - want).max():.3e} (atol 1e-4, rtol 1e-4); the "
+            f"CLI's CSVs vs the in-process path's {csv_err:.1e} (atol "
+            f"1.5e-4); master CSV {len(master)} bags")
+
+        t0 = time.perf_counter()
+        out = run_cli("tpumil_torch.cli.train_wsi",
+                      ["--device", "cuda", "--dataset", "synth",
+                       "--num_classes", str(C), "--feats_size", "512",
+                       "--num_epochs", "1"], tmp)
+        final = [l for l in out.splitlines() if "Mean" in l]
+        if not final:
+            raise AssertionError("train_wsi printed no final results")
+        log(f"[compute_feats] train_wsi --device cuda --num_epochs 1 on the "
+            f"CSVs: exit 0 in {time.perf_counter() - t0:.2f} s; "
+            f"{'; '.join(final)}")
+    return k5
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -684,12 +990,13 @@ def main() -> int:
     pool = phase_pool(gpu)
     train = phase_train(gpu)
     phase_train_wsi()
+    stem = phase_stem(gpu)[torch.float32]
+    k5_launches = phase_compute_feats(gpu)
     kernels = [{
         "name": "fused_instance_norm", "route": "cuda",
         "source": "tpumil_torch/csrc/instance_norm.cu",
         "replaces": "tpumil/ops/in_pallas.py:49",
-        "launches": launches, "max_abs_err": k4["max_abs_err"],
-        "ms": k4["ms"], "plain_ms": k4["plain_ms"]}]
+        "launches": launches, **k4}]
     pool_src = "tpumil_torch/csrc/attention_pool.cu"
     for (name, key, line), count in zip(
             (("attention_pool_fwd", "fwd", 39), ("attention_pool_bwd1", "bwd1", 195),
@@ -698,7 +1005,14 @@ def main() -> int:
             "name": name, "route": "cuda", "source": pool_src,
             "replaces": f"tpumil/ops/dsmil_pallas.py:{line}",
             "launches": count, "max_abs_err": pool["err"][key],
-            "ms": pool["ms"][key], "plain_ms": pool["ms"][key + "_plain"]})
+            "ms": pool["ms"][key], "plain_ms": pool["ms"][key + "_plain"],
+            "bound_ms": pool["bound"][key][0],
+            "bound_by": pool["bound"][key][1], "library_ms": None})
+    kernels.append({
+        "name": "fused_stem", "route": "cuda",
+        "source": "tpumil_torch/csrc/stem.cu",
+        "replaces": "tpumil/ops/stem_pallas.py:84",
+        "launches": k5_launches, **stem, "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -232,3 +232,120 @@ def test_trainer_paths_on_card(card):
         scores, _ = tr.predict(model, store)
         assert np.isfinite(loss) and np.isfinite(scores).all()
         assert tr.fused_dispatches == 0
+
+
+# -- K5: the ResNet stem (csrc/stem.cu) ----------------------------------------
+
+from tpumil_torch.ops.stem import fused_stem, stem_plain  # noqa: E402
+
+
+def _stem_inputs(device, b, seed=0):
+    """[0, 1) images and kaiming-scaled HWIO stem weights."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.random((b, 224, 224, 3), np.float32)).to(device)
+    w = rng.standard_normal((7, 7, 3, 64)) * np.sqrt(2.0 / (7 * 7 * 64))
+    return x, torch.from_numpy(w.astype(np.float32)).to(device)
+
+
+def _stem_bar(x, w7, want, dtype):
+    """f32: atol = rtol = 1e-4 (test_stem_pallas.py's bar; sums in another
+    order). bf16: one bf16 step of the conv output, in normalized units
+    (|x| * inv <= |out| + |mean| * inv per (image, channel), and its pool
+    window's maximum moves by at most that step), plus one bf16 step of the
+    output."""
+    if dtype == torch.float32:
+        return 1e-4 + 1e-4 * want.abs()
+    conv = torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2).to(dtype), w7.permute(3, 2, 0, 1).to(dtype),
+        stride=2, padding=3).float()
+    mean = conv.mean(dim=(2, 3))
+    inv = torch.rsqrt(conv.var(dim=(2, 3), unbiased=False) + 1e-5)
+    shift = (mean.abs() * inv)[:, None, None, :]
+    return 2 ** -7 * (2 * want.float().abs() + shift) + 1e-6
+
+
+def _stem_check(x, w7, dtype):
+    before = fused_stem.launches
+    got = fused_stem(x, w7, dtype)
+    torch.cuda.synchronize()
+    assert fused_stem.launches == before + 1
+    assert got.dtype == dtype and got.shape == (x.shape[0], 56, 56, 64)
+    assert got.is_contiguous() and torch.isfinite(got).all()
+    want = stem_plain(x, w7, dtype)
+    err = (got.float() - want.float()).abs()
+    bad = err > _stem_bar(x, w7, want, dtype)
+    assert not bad.any(), (f"{int(bad.sum())} of {bad.numel()} out of the "
+                           f"bar; max abs err {err.max().item():.3e}")
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_kernel_matches_plain(card, dtype):
+    x, w7 = _stem_inputs(card, 4)
+    _stem_check(x, w7, dtype)
+    _stem_check(x.to(torch.bfloat16), w7, dtype)   # a bf16 input
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_kernel_blank_tiles(card, dtype):
+    """A black image gives a constant conv plane: exact zeros, not NaN. A
+    white image's plane is not constant (the zero padding reaches the
+    border rows and columns); it and near-white and near-black images stay
+    within the bar."""
+    _, w7 = _stem_inputs(card, 1)
+    noise = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 3, (1, 224, 224, 3)).astype(np.float32) / 255).to(card)
+    x = torch.cat([torch.zeros(1, 224, 224, 3, device=card),
+                   torch.ones(1, 224, 224, 3, device=card), 1 - noise, noise])
+    got = _stem_check(x, w7, dtype)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.cuda
+def test_stem_kernel_is_deterministic_and_checks_inputs(card):
+    x, w7 = _stem_inputs(card, 3, seed=2)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(fused_stem(x, w7, dtype), fused_stem(x, w7, dtype))
+    with pytest.raises(ValueError, match="224"):
+        fused_stem(x[:, :112, :112].contiguous(), w7, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_stem(x, w7.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0),
+                   torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        fused_stem(x, w7.to(torch.bfloat16), torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_stem(x.to(torch.uint8), w7, torch.float32)
+
+
+@pytest.mark.cuda
+def test_fused_stem_resnet_route(card, monkeypatch):
+    """ResNet18-IN at 224^2: one K5 launch and 19 K4 launches per forward,
+    features within 1e-4 of the same net with the conv-route stem (conv,
+    K4, max pool); at 192^2 the stem is the conv route, 20 K4 launches."""
+    from tpumil_torch.models import embedder, resnet
+
+    def conv_route_stem(x, w7, dtype):
+        h = resnet._conv(x.permute(0, 3, 1, 2).to(dtype),
+                         w7.permute(3, 2, 0, 1), 2, dtype)
+        return torch.nn.functional.max_pool2d(
+            resnet._instance_norm(h, True), 3, 2, 1).permute(0, 2, 3, 1)
+
+    rng = np.random.default_rng(4)
+    model = embedder.init_params(0, embedder.EmbedderConfig(), card)
+    imgs = {size: torch.from_numpy(rng.integers(
+        0, 256, (4, size, size, 3), np.uint8)).to(card) for size in (224, 192)}
+    feats = {}
+    for size, want in ((224, (19, 1)), (192, (20, 0))):
+        k4, k5 = fused_instance_norm.launches, fused_stem.launches
+        with torch.inference_mode():
+            feats[size], _ = model(imgs[size])
+        torch.cuda.synchronize()
+        assert (fused_instance_norm.launches - k4,
+                fused_stem.launches - k5) == want
+    monkeypatch.setattr(resnet, "fused_stem", conv_route_stem)
+    with torch.inference_mode():
+        conv, _ = model(imgs[224])
+    np.testing.assert_allclose(feats[224].cpu().numpy(), conv.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)

@@ -186,7 +186,8 @@ def test_scheme_matches_jax(monkeypatch, scheme):
     want = getattr(jschemes, scheme)(jbags, jschemes.WSITrainConfig(**kw),
                                      log=lambda s: None)
     monkeypatch.setattr(BagTrainer, "init", _jax_init)
-    got = getattr(schemes, scheme)(pbags, schemes.WSITrainConfig(**kw),
+    got = getattr(schemes, scheme)(pbags,
+                                   schemes.WSITrainConfig(**kw, device=CPU),
                                    log=lambda s: None)
     if scheme == "run_5time_tvt":
         for g, w in zip(got["iterations"], want["iterations"]):
@@ -223,7 +224,7 @@ def test_resume_from_markers_and_scale_out_raises(tmp_path):
     _, pbags = _cohort(1)
     cfg = schemes.WSITrainConfig(feats_size=16, num_classes=1, num_epochs=2,
                                  lr=1e-3, stop_epochs=2, verbose=False,
-                                 resume=True)
+                                 resume=True, device=CPU)
     save_dir = str(tmp_path / "w")
     out1 = schemes.run_5fold_cv(pbags, cfg, log=lambda s: None,
                                 save_dir=save_dir)
@@ -252,7 +253,7 @@ def test_mid_fold_state_resume_is_exact(tmp_path, monkeypatch):
     cfg = schemes.WSITrainConfig(feats_size=16, num_classes=1, num_epochs=4,
                                  lr=1e-3, stop_epochs=4, verbose=False,
                                  resume=True, fold_state_every=1,
-                                 dropout_patch=0.3)
+                                 dropout_patch=0.3, device=CPU)
     trainer = schemes._make_trainer(cfg)
     tr, te = pbags[:14], pbags[14:]
     fp = schemes._cfg_fingerprint(cfg, "5-fold-cv")
@@ -344,5 +345,22 @@ def test_cli_flags_match_jax():
             argparse.ArgumentParser.parse_args = real
         return seen
 
-    assert flags(train_wsi) == flags(jcli)
+    port, jax_flags = flags(train_wsi), flags(jcli)
+    # the one difference: the port's device is the card unless asked
+    assert (port.pop("device"), jax_flags.pop("device")) == ("cuda", "auto")
+    assert port == jax_flags
     assert sys.modules["tpumil_torch.cli.train_wsi"] is train_wsi
+
+
+def test_train_wsi_defaults_to_the_card(tmp_path, monkeypatch):
+    """No --device: the card, which raises without one before any file is
+    read; a WSITrainConfig without a device trains on the card too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.chdir(tmp_path)
+    assert train_wsi.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_wsi.main(["--dataset", "synth"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        schemes._make_trainer(schemes.WSITrainConfig(feats_size=16,
+                                                     num_classes=1))

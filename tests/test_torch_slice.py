@@ -111,7 +111,11 @@ _PORT_MODULES = [
     "tpumil_torch.data.device_store", "tpumil_torch.train.metrics",
     "tpumil_torch.train.optim", "tpumil_torch.train.trainer",
     "tpumil_torch.train.schemes", "tpumil_torch.io.native_ckpt",
-    "tpumil_torch.cli.train_wsi", "chip_smoke",
+    "tpumil_torch.cli.train_wsi", "tpumil_torch.ops.stem",
+    "tpumil_torch.utils.sharding", "tpumil_torch.utils.native",
+    "tpumil_torch.data.patches", "tpumil_torch.infer.features",
+    "tpumil_torch.cli.compute_feats", "chip_smoke", "tools.serve_profile",
+    "tools.train_profile", "tools.extract_profile",
 ]
 # not installed beside the card (sklearn, optax, orbax, pandas), or the
 # package the port replaces
@@ -139,6 +143,9 @@ def test_port_sources_have_no_jax_or_tpumil_import():
              for d, _, fs in os.walk(os.path.join(REPO, "tpumil_torch"))
              for f in fs if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, "tools", f)
+              for f in os.listdir(os.path.join(REPO, "tools"))
+              if f.endswith(".py")]
     assert len(files) > 25
     for path in files:
         with open(path) as f:

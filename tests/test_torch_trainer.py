@@ -68,7 +68,7 @@ def _pair(thr, c=2, **kw):
     jt = jtrainer.BagTrainer(JCfg(K, c), optimizer=joptim.adam_torch(
         betas=(0.5, 0.9), weight_decay=1e-3), fused_threshold=thr, **kw)
     pt = BagTrainer(DSMILConfig(K, c), weight_decay=1e-3, fused_threshold=thr,
-                    **kw)
+                    device=CPU, **kw)
     params, opt_state = jt.init(jax.random.PRNGKey(0))
     model = DSMIL(DSMILConfig(K, c), CPU)
     model.load_state_dict(from_jax.dsmil_state_dict(
@@ -100,7 +100,7 @@ def test_trainer_matches_jax(path, thr):
     pw = np.asarray([1.3, 0.8], np.float32)
     jt.pos_weight = pt.pos_weight = pw
     jdata = jbags if path == "list" else JStore(jbags)
-    pdata = pbags if path == "list" else DeviceBagStore(pbags)
+    pdata = pbags if path == "list" else DeviceBagStore(pbags, device=CPU)
     r1, r2 = np.random.default_rng(5), np.random.default_rng(5)
     lrs = [1e-3, 5e-4]
     if path == "store_epochs":
@@ -136,7 +136,8 @@ def test_dummy_bags_take_no_step():
     assert jstore.buckets[32][0].shape[0] == 8  # 3 real + 5 dummies
     params, ostate, _ = jt.train_epoch(params, ostate, jstore, 1e-3,
                                        np.random.default_rng(0))
-    model, opt, _ = pt.train_epoch(model, opt, DeviceBagStore(pbags), 1e-3,
+    model, opt, _ = pt.train_epoch(model, opt,
+                                   DeviceBagStore(pbags, device=CPU), 1e-3,
                                    np.random.default_rng(0))
     assert int(ostate[-1].count) == 3
     steps = {int(s["step"]) for s in opt.state.values()}
@@ -165,7 +166,8 @@ def test_patch_dropout_trains_and_draws_like_jax():
     jt, pt, (params, ostate), (model, opt) = _pair(16, dropout_patch=0.3)
     r1, r2 = np.random.default_rng(9), np.random.default_rng(9)
     jt.train_epoch(params, ostate, JStore(jbags), 1e-3, r1)
-    _, _, loss = pt.train_epoch(model, opt, DeviceBagStore(pbags), 1e-3, r2)
+    _, _, loss = pt.train_epoch(model, opt, DeviceBagStore(pbags, device=CPU),
+                                1e-3, r2)
     assert np.isfinite(loss) and pt.fused_dispatches == 0
     assert r1.integers(1 << 62) == r2.integers(1 << 62)
 
@@ -175,18 +177,21 @@ def test_routing_decisions():
     (test_trainer.py:231-298)."""
     cfg = DSMILConfig(feats_size=16, num_classes=1)
     t = 16384
-    assert not BagTrainer(cfg, dropout_patch=0.5, fused_threshold=t)._use_fused(65536)
-    assert not BagTrainer(cfg, fused_threshold=None)._use_fused(65536)
+    assert not BagTrainer(cfg, dropout_patch=0.5, fused_threshold=t,
+                          device=CPU)._use_fused(65536)
+    assert not BagTrainer(cfg, fused_threshold=None,
+                          device=CPU)._use_fused(65536)
     assert not BagTrainer(DSMILConfig(16, 1, passing_v=True),
-                          fused_threshold=t)._use_fused(65536)
+                          fused_threshold=t, device=CPU)._use_fused(65536)
     assert not BagTrainer(DSMILConfig(16, 1, nonlinear=False),
-                          fused_threshold=t)._use_fused(65536)
-    assert BagTrainer(cfg, fused_threshold=t)._use_fused(t)
-    assert not BagTrainer(cfg, fused_threshold=t)._use_fused(t // 2)
+                          fused_threshold=t, device=CPU)._use_fused(65536)
+    assert BagTrainer(cfg, fused_threshold=t, device=CPU)._use_fused(t)
+    assert not BagTrainer(cfg, fused_threshold=t,
+                          device=CPU)._use_fused(t // 2)
     with pytest.raises(NotImplementedError, match="abmil"):
-        BagTrainer(cfg, model="abmil")
+        BagTrainer(cfg, model="abmil", device=CPU)
 
-    tr = BagTrainer(DSMILConfig(feats_size=512, num_classes=1))
+    tr = BagTrainer(DSMILConfig(feats_size=512, num_classes=1), device=CPU)
     assert tr.fused_threshold == "auto"
     assert trainer.memory_budget_bytes(CPU) == trainer.HOST_BUDGET_BYTES
     assert trainer.step_workingset_bytes(8192) == \
@@ -211,7 +216,7 @@ def test_auto_routing_is_the_jax_rule(monkeypatch):
                         jtrainer.XLA_STEP_BYTES_PER_INSTANCE)
     for extra in (0, 10 * 2 ** 30):
         jt = jtrainer.BagTrainer(JCfg(512, 1))
-        pt = BagTrainer(DSMILConfig(512, 1))
+        pt = BagTrainer(DSMILConfig(512, 1), device=CPU)
         jt.extra_resident_bytes = pt.extra_resident_bytes = extra
         for n in (4096, 16384, 131072, 262144, 1 << 20):
             for b in (1, 2, 8):
@@ -237,7 +242,7 @@ def test_list_and_store_predict_agree():
     _, pbags = _bags(5, SIZES)
     _, pt, _, (model, _) = _pair(None)
     s1, l1 = pt.predict(model, pbags)
-    s2, l2 = pt.predict(model, DeviceBagStore(pbags))
+    s2, l2 = pt.predict(model, DeviceBagStore(pbags, device=CPU))
     np.testing.assert_allclose(s1, s2, rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(l1, l2, rtol=1e-6, atol=1e-7)
     avg, _ = pt.predict(model, pbags, average=True)
@@ -246,7 +251,7 @@ def test_list_and_store_predict_agree():
 
 def test_device_store_bookkeeping_matches_jax():
     jbags, pbags = _bags(6, SIZES)
-    js, ps = JStore(jbags), DeviceBagStore(pbags)
+    js, ps = JStore(jbags), DeviceBagStore(pbags, device=CPU)
     assert ps.bucket_sizes == js.bucket_sizes
     for nmax in js.bucket_sizes:
         np.testing.assert_array_equal(ps.index[nmax], js.index[nmax])
@@ -264,9 +269,9 @@ def test_device_store_bookkeeping_matches_jax():
 
 def test_init_functions():
     cfg = DSMILConfig(feats_size=40, num_classes=3)
-    a = dsmil.init_params(torch.Generator().manual_seed(0), cfg)
-    b = dsmil.init_params(torch.Generator().manual_seed(0), cfg)
-    c = dsmil.init_params(torch.Generator().manual_seed(1), cfg)
+    a = dsmil.init_params(torch.Generator().manual_seed(0), cfg, CPU)
+    b = dsmil.init_params(torch.Generator().manual_seed(0), cfg, CPU)
+    c = dsmil.init_params(torch.Generator().manual_seed(1), cfg, CPU)
     for k, v in a.state_dict().items():
         assert torch.equal(v, b.state_dict()[k])
         if k.endswith("bias"):
@@ -284,7 +289,8 @@ def test_init_functions():
         torch.nn.init.orthogonal_(want, generator=torch.Generator().manual_seed(5))
         got = orthogonal_torch(torch.Generator().manual_seed(5), shape)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    t = dsmil.torch_default_init_params(torch.Generator().manual_seed(0), cfg)
+    t = dsmil.torch_default_init_params(torch.Generator().manual_seed(0), cfg,
+                                        CPU)
     for layer in (t.i_classifier.fc[0], t.b_classifier.q[2], t.b_classifier.fcc):
         bound = 1 / np.sqrt(np.prod(layer.weight.shape[1:]))
         assert layer.weight.abs().max() <= bound and layer.bias.abs().max() <= bound
@@ -294,7 +300,7 @@ def test_init_functions():
 def test_value_dropout_draws_from_the_generator():
     cfg = DSMILConfig(feats_size=16, num_classes=2, passing_v=True,
                       dropout_v=0.5)
-    model = dsmil.init_params(torch.Generator().manual_seed(0), cfg)
+    model = dsmil.init_params(torch.Generator().manual_seed(0), cfg, CPU)
     x = torch.randn(30, 16, generator=torch.Generator().manual_seed(1))
     ref = model(x)[1]                        # eval mode: no dropout
     model.train()
@@ -349,3 +355,19 @@ def test_ops_match_jax():
                                     jnp.asarray(logits[1]),
                                     jnp.asarray(labels[0]), pw)
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+
+
+def test_device_defaults_are_the_card():
+    """Left out, the device is the card: without one, every entry point
+    that takes a device raises instead of landing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = DSMILConfig(feats_size=16, num_classes=1)
+    _, pbags = _bags(7, [10, 20])
+    gen = torch.Generator().manual_seed(0)
+    for make in (lambda: BagTrainer(cfg),
+                 lambda: DeviceBagStore(pbags),
+                 lambda: dsmil.init_params(gen, cfg),
+                 lambda: dsmil.torch_default_init_params(gen, cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

@@ -242,7 +242,8 @@ def parse_args(argv=None):
     parser.add_argument("--space_to_depth",
                         action=argparse.BooleanOptionalAction, default=False,
                         help="space-to-depth stem rewrite (same math, "
-                             "different summation order)")
+                             "different summation order); moot for instance "
+                             "norm at 224^2, whose stem is the fused kernel")
     parser.add_argument("--batch_size", type=int, default=128)
     parser.add_argument("--patch_size", type=int, default=224)
     parser.add_argument("--max_wait_ms", type=float, default=8.0)

@@ -54,10 +54,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="[5-fold-cv | 5-fold-cv-standalone-test | "
                              "5-time-train+valid+test]")
     parser.add_argument("--seed", default=0, type=int)
-    parser.add_argument("--device", default="auto",
-                        choices=["auto", "cpu", "cuda"],
-                        help="auto = cuda when a card is present, else cpu; "
-                             "cuda without a card raises")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cuda without a card raises")
     parser.add_argument("--cache_dir", default="temp_train", type=str)
     parser.add_argument("--save_root", default="weights", type=str)
     parser.add_argument("--eval_interval", default=1, type=int,
@@ -93,16 +91,11 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     print(args.eval_scheme)
 
-    import torch
-
     from tpumil_torch.data.feature_store import BagCache, read_master_csv
     from tpumil_torch.train import schemes
     from tpumil_torch.utils.device import select_device
 
-    name = args.device
-    if name == "auto":
-        name = "cuda" if torch.cuda.is_available() else "cpu"
-    device = select_device(name)
+    device = select_device(args.device)
     print(f"device: {device}")
 
     cfg = schemes.WSITrainConfig(

@@ -16,16 +16,18 @@ import numpy as np
 import torch
 
 from tpumil_torch.data.bags import Bag, bucket_length
+from tpumil_torch.utils.device import select_device
 
 
 class DeviceBagStore:
-    """Bags resident on ``device``. ``bag(i)`` is bag ``i``'s ``[N_i, K]``
-    slice; ``index[nmax]`` lists, in bucket-row order, the positions of the
-    bags whose bucket length is ``nmax``; ``counts[nmax]`` is their number."""
+    """Bags resident on ``device`` (None: the card; raises without one).
+    ``bag(i)`` is bag ``i``'s ``[N_i, K]`` slice; ``index[nmax]`` lists, in
+    bucket-row order, the positions of the bags whose bucket length is
+    ``nmax``; ``counts[nmax]`` is their number."""
 
     def __init__(self, bags: Sequence[Bag], min_bucket: int = 16,
                  device: Optional[torch.device] = None):
-        device = torch.device("cpu") if device is None else device
+        device = select_device("cuda") if device is None else device
         sizes = [b.num_instances for b in bags]
         feats = np.concatenate([np.asarray(b.feats, np.float32) for b in bags])
         labels = np.stack([np.atleast_1d(b.label) for b in bags])

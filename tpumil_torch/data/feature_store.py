@@ -6,7 +6,8 @@ Filesystem contracts (the reference's):
   * per-bag CSV: one row per instance, K feature columns under a header row
     of column numbers, floats written as ``%.4f``;
   * master dataset CSV ``datasets/<ds>/<ds>.csv``: column 0 = bag CSV path,
-    column 1 = integer class;
+    column 1 = integer class, under the header ``0,label``; one such list per
+    class beside it (``<class>.csv``);
   * bags are cached as ``.npz`` (feats float32 [N, K] + label [C]) with the
     reference's row shuffle applied once at cache time.
 """
@@ -121,3 +122,35 @@ def write_bag_csv(feats: np.ndarray, path: str) -> None:
     header = ",".join(str(j) for j in range(feats.shape[1]))
     np.savetxt(path, feats, fmt="%.4f", delimiter=",", header=header,
                comments="")
+
+
+def _write_bag_list(path: str, rows: Sequence[Tuple[str, int]]) -> None:
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(["0", "label"])
+        writer.writerows(rows)
+
+
+def build_dataset_csvs(feats_root: str, dataset: str,
+                       out_dir: Optional[str] = None,
+                       rng: Optional[np.random.Generator] = None) -> str:
+    """Assemble the per-class bag lists and the shuffled master CSV from a
+    directory of per-class bag CSVs. Classes are the sorted subdirectories
+    of ``feats_root`` and their labels are their positions in that order;
+    the master's rows are permuted by ``rng.permutation``. Returns the
+    master CSV's path."""
+    out_dir = out_dir or feats_root
+    class_dirs = sorted(d for d in glob.glob(os.path.join(feats_root, "*"))
+                        if os.path.isdir(d))
+    rows: List[Tuple[str, int]] = []
+    for label, class_dir in enumerate(class_dirs):
+        bag_csvs = sorted(c for c in glob.glob(os.path.join(class_dir, "*.csv"))
+                          if not c.endswith(".pos.csv"))  # position sidecars
+        mine = [(path, label) for path in bag_csvs]
+        _write_bag_list(os.path.join(out_dir, os.path.basename(class_dir)
+                                     + ".csv"), mine)
+        rows.extend(mine)
+    rng = rng or np.random.default_rng()
+    master = os.path.join(out_dir, dataset + ".csv")
+    _write_bag_list(master, [rows[j] for j in rng.permutation(len(rows))])
+    return master

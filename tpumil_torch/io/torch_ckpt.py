@@ -34,6 +34,14 @@ def load_state_dict(path: str) -> "collections.OrderedDict":
     return collections.OrderedDict((k, v.detach()) for k, v in sd.items())
 
 
+def save_state_dict(sd: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write ``{name: tensor}`` as a ``.pth`` of f32 CPU tensors, in the
+    given order (the embedder export's positional layout)."""
+    torch.save(collections.OrderedDict(
+        (k, v.detach().to("cpu", torch.float32).contiguous().clone())
+        for k, v in sd.items()), path)
+
+
 def strip_projection_head(sd: "collections.OrderedDict",
                           n: int = 4) -> "collections.OrderedDict":
     """Drop the last ``n`` entries (the SimCLR projection MLP), the

@@ -31,7 +31,7 @@ from torch import nn
 
 from tpumil_torch.ops.init import orthogonal_torch
 from tpumil_torch.ops.masked import masked_argmax, masked_max, masked_softmax
-from tpumil_torch.utils.device import disable_tf32
+from tpumil_torch.utils.device import disable_tf32, select_device
 
 ATTN_DIM = 128  # the reference hard-codes 128 query dims
 
@@ -146,11 +146,12 @@ def _set(param: torch.Tensor, value: torch.Tensor) -> None:
 
 
 def init_params(generator: torch.Generator, cfg: DSMILConfig,
-                device: torch.device = torch.device("cpu")) -> DSMIL:
+                device: Optional[torch.device] = None) -> DSMIL:
     """Orthogonal weights (``torch.nn.init.orthogonal_`` orientation) and
     zero biases, the reference's init, drawn from ``generator`` (on the
-    CPU) in the JAX package's order: i_fc, fcc, q, v."""
-    model = DSMIL(cfg, device)
+    CPU) in the JAX package's order: i_fc, fcc, q, v. ``device`` None is
+    the card (raises without one)."""
+    model = DSMIL(cfg, select_device("cuda") if device is None else device)
     bc = model.b_classifier
     q = (bc.q[0], bc.q[2]) if cfg.nonlinear else (bc.q,)
     v = (bc.v[1],) if cfg.passing_v else ()
@@ -162,12 +163,13 @@ def init_params(generator: torch.Generator, cfg: DSMILConfig,
 
 
 def torch_default_init_params(generator: torch.Generator, cfg: DSMILConfig,
-                              device: torch.device = torch.device("cpu")
+                              device: Optional[torch.device] = None
                               ) -> DSMIL:
     """``nn.Linear``/``nn.Conv1d``'s default init, U(-1/sqrt(fan_in),
     1/sqrt(fan_in)) for weights and biases (what the reference's
-    train_mil.py trains with), drawn from ``generator`` (on the CPU)."""
-    model = DSMIL(cfg, device)
+    train_mil.py trains with), drawn from ``generator`` (on the CPU).
+    ``device`` None is the card (raises without one)."""
+    model = DSMIL(cfg, select_device("cuda") if device is None else device)
     for layer in model.modules():
         if isinstance(layer, (nn.Linear, nn.Conv1d)):
             bound = 1.0 / math.sqrt(math.prod(layer.weight.shape[1:]))

@@ -9,7 +9,9 @@ of tpumil/models/resnet.py), built without torchvision.
   * Activations run NCHW in ``torch.channels_last`` memory, i.e. NHWC bytes:
     every InstanceNorm(+ReLU) site hands its tensor to the Hopper kernel
     ``ops/instance_norm.fused_instance_norm`` as an NHWC view with no copy.
-    Convolutions and the max pool stay ``F.conv2d`` / ``F.max_pool2d``.
+    Convolutions and the max pool stay ``F.conv2d`` / ``F.max_pool2d``,
+    except in the stem of an instance-norm net on 224^2 inputs, which is
+    the one Hopper kernel of ``ops/stem.fused_stem`` (K5).
   * Batch norm runs folded running statistics (inference only).
   * ``compute_dtype`` bf16 keeps activations in bf16 between layers; norm
     statistics are always taken in f32. Parameters stay f32.
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpumil_torch.ops.instance_norm import fused_instance_norm
+from tpumil_torch.ops.stem import C_IN, H_IN, fused_stem
 from tpumil_torch.utils.device import disable_tf32
 
 ARCHS = {
@@ -38,6 +41,7 @@ ARCHS = {
 }
 STAGE_WIDTHS = (64, 128, 256, 512)
 EPS = 1e-5  # torch norm eps default
+STEM_INPUT = (H_IN, H_IN, C_IN)  # the NHWC image shape K5 takes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +51,7 @@ class ResNetConfig:
     compute_dtype: torch.dtype = torch.float32
     # Rewrite the 7x7/s2 stem conv as a 2x2 space-to-depth + 4x4/s1 conv
     # (mathematically identical; 12 input channels, a quarter of the
-    # spatial positions).
+    # spatial positions). Moot where the stem is K5 (instance norm, 224^2).
     space_to_depth: bool = False
 
     @property
@@ -281,14 +285,22 @@ class ResNet(nn.Module):
         cfg = self.cfg
         dtype = cfg.compute_dtype
         disable_tf32()
-        # the NCHW permute of a contiguous NHWC tensor IS channels_last memory
-        x = x.permute(0, 3, 1, 2).to(dtype)
-        if cfg.space_to_depth and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
-            x = _stem_space_to_depth(x, self.conv1.weight, dtype)
-        else:
-            x = _conv(x, self.conv1.weight, 2, dtype)
-        x = self.bn1(x, True) if cfg.norm == "batch" else _instance_norm(x, True)
-        x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+        if cfg.norm == "instance" and tuple(x.shape[1:]) == STEM_INPUT:
+            # conv, IN, ReLU and max pool in K5; NHWC out, handed on as its
+            # NCHW channels_last view (no copy)
+            w7 = self.conv1.weight.permute(2, 3, 1, 0).contiguous()  # HWIO
+            x = fused_stem(x.contiguous(), w7, dtype).permute(0, 3, 1, 2)
+        else:  # the inputs K5 does not take: batch norm, other sizes
+            # the NCHW permute of a contiguous NHWC tensor IS channels_last
+            x = x.permute(0, 3, 1, 2).to(dtype)
+            if cfg.space_to_depth and x.shape[2] % 2 == 0 \
+                    and x.shape[3] % 2 == 0:
+                x = _stem_space_to_depth(x, self.conv1.weight, dtype)
+            else:
+                x = _conv(x, self.conv1.weight, 2, dtype)
+            x = self.bn1(x, True) if cfg.norm == "batch" \
+                else _instance_norm(x, True)
+            x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:
                 x = block(x, dtype)

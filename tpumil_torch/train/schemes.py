@@ -64,7 +64,8 @@ class WSITrainConfig:
     # multi-device modes of the JAX package; not ported yet
     inst_shard: int = 0
     data_parallel: int = 0
-    device: torch.device = torch.device("cpu")
+    # None: the card; BagTrainer resolves it (and raises without one)
+    device: Optional[torch.device] = None
 
 
 def _make_trainer(cfg: WSITrainConfig) -> BagTrainer:

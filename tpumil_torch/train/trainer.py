@@ -36,6 +36,7 @@ from tpumil_torch.models.registry import get_model
 from tpumil_torch.ops.attention_pool import fused_bag_forward, fused_bag_loss
 from tpumil_torch.ops.losses import dual_stream_loss
 from tpumil_torch.train.optim import adam_torch, set_lr
+from tpumil_torch.utils.device import select_device
 
 # -- giant-bag memory model ---------------------------------------------------
 # Memory the "auto" route may plan for on the CPU: the JAX package's 13 GiB
@@ -121,10 +122,13 @@ class BagTrainer:
     # other device residents the caller keeps alive (a global store whose
     # fold subsets are trained), added to the "auto" estimate
     extra_resident_bytes: int = 0
-    device: torch.device = torch.device("cpu")
+    # None: the card (select_device("cuda"), which raises without one)
+    device: Optional[torch.device] = None
 
     def __post_init__(self):
         get_model(self.model)  # unported models raise here
+        if self.device is None:
+            self.device = select_device("cuda")
         self._fused_eligible = (
             self.model == "dsmil" and self.cfg.nonlinear
             and not self.cfg.passing_v and self.dropout_patch == 0.0

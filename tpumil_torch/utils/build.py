@@ -116,5 +116,9 @@ def load_library() -> ctypes.CDLL:
             lib.tpumil_attention_pool_bwd1.restype = i
             lib.tpumil_attention_pool_bwd2.argtypes = [p] * 10 + [i] * 6 + [p] * 4
             lib.tpumil_attention_pool_bwd2.restype = i
+            lib.tpumil_stem_tiles.argtypes = []
+            lib.tpumil_stem_tiles.restype = i
+            lib.tpumil_stem.argtypes = [p] * 5 + [i] * 2 + [ctypes.c_float, p]
+            lib.tpumil_stem.restype = i
             _lib = lib
         return _lib
