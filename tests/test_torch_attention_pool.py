@@ -108,6 +108,71 @@ def test_trainable_pool_matches_pallas_backward(nonlinear, n, n_valid):
     np.testing.assert_array_equal(leaves[0].grad.numpy()[n_valid:], 0.0)
 
 
+@pytest.mark.parametrize("nonlinear,n,n_valid", CASES)
+def test_trainable_pool_without_feats_grad_matches_pallas(nonlinear, n,
+                                                           n_valid,
+                                                           monkeypatch):
+    """Feats that need no gradient (precomputed bag features, as in
+    training): the weight gradients still match make_trainable_pool's
+    custom VJP, feats get no gradient, and K3 is asked for no dF."""
+    feats, w, q_max, cot = _inputs(n, n_valid, nonlinear, seed=7)
+    pool = jpool.make_trainable_pool(tile_n=TILE, nonlinear=nonlinear,
+                                     interpret=True)
+
+    def loss_j(w0, b0, w2, b2, qm):
+        out = pool(jnp.asarray(feats), w0, b0, w2, b2, qm,
+                   jnp.asarray([n_valid], jnp.int32))
+        return jnp.sum(out * cot)
+
+    args = [w["w0"], w["b0"], w["w2"], w["b2"], q_max]
+    want_loss, want_grads = jax.value_and_grad(
+        loss_j, argnums=tuple(range(5)))(*map(jnp.asarray, args))
+
+    asked = []
+    bwd2 = ap.attention_pool_bwd2
+
+    def spy(*a, **kw):
+        out = bwd2(*a, **kw)
+        asked.append(out[0] is not None)
+        return out
+
+    monkeypatch.setattr(ap, "attention_pool_bwd2", spy)
+    f = torch.from_numpy(feats)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    w2, b2 = (leaves[2], leaves[3]) if nonlinear else (None, None)
+    out = ap.TrainablePool.apply(f, leaves[0], leaves[1], w2, b2, leaves[4],
+                                 n_valid, nonlinear)
+    loss = (out * torch.from_numpy(cot)).sum()
+    loss.backward()
+    assert asked == [False] and f.grad is None
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-4)
+    for name, leaf, g in zip(["w0", "b0", "w2", "b2", "q_max"], leaves,
+                             want_grads):
+        if not nonlinear and name in ("w2", "b2"):
+            assert leaf.grad is None
+            continue
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(g),
+                                   rtol=5e-3, atol=1e-5,
+                                   err_msg=f"grad of {name}")
+
+
+@pytest.mark.parametrize("nonlinear", [True, False])
+def test_bwd2_without_df_keeps_the_other_gradients(nonlinear):
+    """K3's plain version honours need_df: no dF, and every other gradient
+    bit for bit that of the call that computes dF."""
+    feats, w, q_max, cot = _inputs(384, 300, nonlinear, seed=8)
+    f, qm, db = map(torch.from_numpy, (feats, q_max, cot))
+    ws = _torch_weights(w, nonlinear)
+    _, m, s = ap.attention_pool_fwd(f, *ws, qm, 300, nonlinear)
+    red = ap.attention_pool_bwd1(f, *ws, qm, m, s, db, 300, nonlinear)
+    full = ap.attention_pool_bwd2(f, *ws, qm, m, s, db, red, 300, nonlinear)
+    part = ap.attention_pool_bwd2(f, *ws, qm, m, s, db, red, 300, nonlinear,
+                                  need_df=False)
+    assert full[0].shape == (384, K) and part[0] is None
+    for a, b in zip(full[1:], part[1:]):
+        assert torch.equal(a, b)
+
+
 def _models(seed=0, k=K, c=C):
     params = jdsmil.init_params(jax.random.PRNGKey(seed),
                                 jdsmil.DSMILConfig(feats_size=k, num_classes=c))

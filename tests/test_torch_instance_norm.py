@@ -18,8 +18,9 @@ import torch
 
 from tpumil.models import resnet as jresnet
 from tpumil.ops.in_pallas import fused_instance_norm as jax_fused_in
-from tpumil_torch.ops.instance_norm import (fused_instance_norm,
-                                            instance_norm_plain)
+from tpumil_torch.ops.instance_norm import (SLICE_MAX, fused_instance_norm,
+                                            instance_norm_plain,
+                                            plan_instance_norm)
 from tpumil_torch.utils import build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -156,3 +157,55 @@ def test_other_device_raises_not_falls_back():
     with pytest.raises(ValueError, match="device"):
         fused_instance_norm(x)
 
+
+
+# every IN site of a ResNet18-IN forward at 224^2 (the 112^2 stem plane is
+# K5's): (H = W, C) -> the cluster size the one-read route takes
+RESNET18_SITES = {torch.float32: {(56, 64): 4, (28, 128): 1, (14, 256): 1,
+                                  (7, 512): 1},
+                  torch.bfloat16: {(56, 64): 2, (28, 128): 1, (14, 256): 1,
+                                   (7, 512): 1}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,c", [(56, 64), (28, 128), (14, 256), (7, 512)])
+def test_planner_sends_resnet18_sites_to_one_read(dtype, hw, c):
+    """One read of device memory at every 224^2 site, whole 256-byte rows
+    (64 f32 or 128 bf16 channels, or all C when fewer), the plane spread
+    over the smallest cluster whose slices fit one CTA's shared memory."""
+    plan = plan_instance_norm((128, hw, hw, c), dtype)
+    elt = torch.empty((), dtype=dtype).element_size()
+    assert plan.route == "one_read"
+    assert plan.cluster == RESNET18_SITES[dtype][(hw, c)]
+    assert plan.cblock == min(c, 256 // elt)
+    assert -(-hw * hw // plan.cluster) * plan.cblock * elt <= SLICE_MAX
+    if plan.cluster > 1:  # no smaller cluster would do
+        half = -(-hw * hw // (plan.cluster // 2))
+        assert half * plan.cblock * elt > SLICE_MAX
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((128, 112, 112, 64), torch.float32),    # the stem plane, were it IN's
+    ((128, 128, 128, 64), torch.float32),    # the stem at a 256^2 input
+    ((128, 128, 128, 64), torch.bfloat16),
+])
+def test_planner_sends_oversized_planes_to_two_reads(shape, dtype):
+    plan = plan_instance_norm(shape, dtype)
+    assert plan.route == "two_read" and plan.cluster == 0
+
+
+def test_planner_plans_fit_for_any_shape(rng):
+    """Every one-read plan fits a CTA and a cluster of at most 8; the batch
+    size never changes the plan."""
+    for _ in range(200):
+        h, w = rng.integers(1, 200, size=2)
+        c = int(rng.integers(1, 1100))
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = plan_instance_norm((1, h, w, c), dtype)
+            assert plan == plan_instance_norm((64, h, w, c), dtype)
+            if plan.route == "two_read":
+                continue
+            elt = torch.empty((), dtype=dtype).element_size()
+            assert plan.cluster in (1, 2, 4, 8)
+            assert 1 <= plan.cblock <= c
+            assert -(-h * w // plan.cluster) * plan.cblock * elt <= SLICE_MAX

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from tpumil_torch.ops.instance_norm import (fused_instance_norm,
-                                            instance_norm_plain)
+                                            instance_norm_plain,
+                                            plan_instance_norm)
 
 # f32: the same statistics summed in another order; bf16: outputs rounded to
 # bf16 may differ by one bf16 step (2^-7 relative)
@@ -66,6 +67,57 @@ def test_instance_norm_kernel_misaligned_and_constant(card):
     const = torch.full((2, 8, 8, 64), 3.7, device=card)
     out = fused_instance_norm(const)
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# every route and cluster size of either dtype (plan_instance_norm; f32 /
+# bf16 cluster in the comments, 0 = two reads): the ResNet18 sites, the
+# stem planes, C = 64 with an odd H*W, C not a multiple of the 16-byte
+# vector, several channel blocks
+ROUTE_SHAPES = [(2, 112, 112, 64),   # 0 / 8
+                (1, 128, 128, 64),   # 0 / 0
+                (2, 80, 80, 64),     # 8 / 4
+                (2, 50, 50, 128),    # 4 / 4
+                (2, 56, 56, 64),     # 4 / 2
+                (2, 57, 55, 64),     # 4 / 2, odd H*W
+                (4, 28, 28, 128),    # 1 / 1
+                (4, 14, 14, 256),    # 1 / 1
+                (4, 7, 7, 512),      # 1 / 1
+                (2, 30, 30, 130),    # 2 / 2, scalar loads
+                (2, 9, 7, 100),      # 1 / 1, scalar in bf16
+                (2, 6, 6, 66)]       # 1 / 1, scalar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ROUTE_SHAPES)
+def test_instance_norm_routes_match_plain_and_rerun_bitwise(card, dtype,
+                                                           shape):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.standard_normal(shape) * 3 + 1)
+                         .astype(np.float32)).to(card, dtype)
+    for relu in (False, True):
+        _check(x, relu, TOL[dtype])
+    assert torch.equal(fused_instance_norm(x, True),
+                       fused_instance_norm(x, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_routes_misaligned_and_constant(card, dtype):
+    """A misaligned view over a cluster takes the scalar loads; a constant
+    plane gives exact zeros on every route and cluster size."""
+    n, h, w, c = 2, 80, 80, 64
+    base = torch.randn(n * h * w * c + 1, device=card).to(dtype)
+    x = base[1:].view(n, h, w, c)
+    assert x.data_ptr() % 16 != 0
+    assert plan_instance_norm(x.shape, dtype).cluster >= 4
+    _check(x, True, TOL[dtype])
+    for shape in ((1, 128, 128, 64), (2, 112, 112, 64), (2, 80, 80, 64),
+                  (2, 50, 50, 128), (2, 56, 56, 64), (2, 30, 30, 130),
+                  (2, 7, 7, 512)):
+        const = torch.full(shape, 3.7, device=card, dtype=dtype)
+        out = fused_instance_norm(const, True)
+        assert torch.equal(out, torch.zeros_like(out)), shape
 
 
 @pytest.mark.cuda
@@ -146,6 +198,84 @@ def test_attention_pool_kernels_match_plain(card, nonlinear, n, n_valid, k, c):
     assert not got[0][n_valid:].any()
     assert (ap.attention_pool_fwd.launches, ap.attention_pool_bwd1.launches,
             ap.attention_pool_bwd2.launches) == tuple(x + 1 for x in counts)
+
+
+def _off_kink(device, n, k, c, nonlinear, seed, gap=1e-5):
+    """_pool_inputs with n rows whose z1 = f W0^T + b0 (in float64) keeps
+    |z1| > gap: at the ReLU's kink the gradient jumps, and two f32
+    computations of z1 may take opposite sides of it (of the 8.4M z1 values
+    at N = 65529, about one lies within f32 rounding of 0)."""
+    feats, w, qm, db = _pool_inputs(device, n + n // 20 + 64, n + n // 20 + 64,
+                                    k, c, nonlinear, seed)
+    if nonlinear:
+        z1 = feats.double() @ w[0].double().T + w[1].double()
+        feats = feats[z1.abs().amin(dim=1) > gap]
+    return feats[:n].contiguous(), w, qm, db
+
+
+# K3's cases: (N, n_valid, K, C, nonlinear)
+BWD2_CASES = [(1000, 1000, 512, 2, True), (1000, 997, 512, 2, False),
+              (65529, 65529, 512, 2, True), (5000, 4097, 1024, 3, True),
+              (33, 33, 36, 8, True), (1, 1, 64, 1, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_valid,k,c,nonlinear", BWD2_CASES)
+def test_attention_pool_bwd2_matches_plain(card, n, n_valid, k, c, nonlinear):
+    """K3 (3xTF32 on the tensor cores) against its plain version (cuBLAS
+    f32) with dF written and skipped: 1e-3 of max|plain| + 1e-6 everywhere,
+    and 1e-5 of max|plain| at N = 65529, which one TF32 pass misses by two
+    orders of magnitude (its rows keep z1 off the ReLU's kink). Skipping
+    dF leaves every other gradient bitwise equal; a rerun is bitwise
+    equal."""
+    if n == 65529:
+        feats, w, qm, db = _off_kink(card, n, k, c, nonlinear, seed=5)
+        assert feats.shape == (n, k)
+    else:
+        feats, w, qm, db = _pool_inputs(card, n, n_valid, k, c, nonlinear,
+                                        seed=5)
+    _, m, s = ap.attention_pool_plain(feats, *w, qm, n_valid, nonlinear)
+    red = ap.attention_pool_bwd1_plain(feats, *w, qm, m, s, db, n_valid,
+                                       nonlinear)
+    args = (feats, *w, qm, m, s, db, red, n_valid, nonlinear)
+    before = ap.attention_pool_bwd2.launches
+    got = ap.attention_pool_bwd2(*args)
+    torch.cuda.synchronize()
+    want = ap.attention_pool_bwd2_plain(*args)
+    names = ("dF", "dW0", "db0", "dW2", "db2", "dq_max")
+    for name, g, x in zip(names, got, want):
+        if not nonlinear and name in ("dW2", "db2"):
+            continue
+        _close(name, g, x, 1e-3)
+        if n == 65529:
+            err = (g - x).abs().max().item()
+            assert err <= 1e-5 * x.abs().max().item(), (name, err)
+    assert not got[0][n_valid:].any()
+    skipped = ap.attention_pool_bwd2(*args, need_df=False)
+    assert skipped[0] is None
+    for a, b in zip(got[1:], skipped[1:]):
+        assert torch.equal(a, b)
+    rerun = ap.attention_pool_bwd2(*args)
+    for a, b in zip(got, rerun):
+        assert torch.equal(a, b)
+    assert ap.attention_pool_bwd2.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_trainable_pool_skips_df_for_constant_feats(card):
+    """Feats that need no gradient (precomputed bag features): no dF, and
+    the parameter gradients are bitwise those of the run that writes dF."""
+    feats, w, qm, db = _pool_inputs(card, 3000, 2900, 512, 2, True, seed=6)
+    grads = {}
+    for need in (True, False):
+        leaves = [feats.clone().requires_grad_(need)] + [
+            x.clone().requires_grad_(True) for x in [*w, qm]]
+        out = ap.TrainablePool.apply(*leaves, 2900, True)
+        (out * db).sum().backward()
+        grads[need] = [x.grad for x in leaves]
+    assert grads[False][0] is None and grads[True][0] is not None
+    for a, b in zip(grads[True][1:], grads[False][1:]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -115,7 +115,8 @@ _PORT_MODULES = [
     "tpumil_torch.utils.sharding", "tpumil_torch.utils.native",
     "tpumil_torch.data.patches", "tpumil_torch.infer.features",
     "tpumil_torch.cli.compute_feats", "chip_smoke", "tools.serve_profile",
-    "tools.train_profile", "tools.extract_profile",
+    "tools.train_profile", "tools.extract_profile", "tools.in_sweep",
+    "tools.k3_accuracy",
 ]
 # not installed beside the card (sklearn, optax, orbax, pandas), or the
 # package the port replaces

@@ -33,7 +33,7 @@ from tools.serve_profile import (activities, busy_us, device_events, gpu_line,
 CLASSES = (
     ("K1 fwd", ("pool_fwd_kernel", "pool_merge_kernel")),
     ("K2 bwd1", ("pool_bwd1_kernel",)),
-    ("K3 bwd2", ("pool_bwd2_kernel",)),
+    ("K3 bwd2", ("pool_bwd2_",)),
     ("K2/K3 partial sums", ("reduce_partials",)),
     ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "ampere_", "cublas")),
     ("adam", ("adam", "multi_tensor")),

@@ -4,7 +4,9 @@
 // Replaces the Pallas TPU kernels of tpumil/ops/dsmil_pallas.py:
 //   K1  fused_attention_pool (_kernel)   -> pool_fwd_kernel + pool_merge_kernel
 //   K2  _bwd1_kernel                     -> pool_bwd1_kernel + reduce_partials
-//   K3  _bwd2_kernel                     -> pool_bwd2_kernel + reduce_partials
+//   K3  _bwd2_kernel                     -> pool_bwd2_rows_kernel,
+//                                           pool_bwd2_dw0_kernel,
+//                                           pool_bwd2_df_kernel + reduce_partials
 //
 // Per bag (feats f [N, K] row-major f32, D = 128, C <= 8 classes):
 //   z1 = f W0^T + b0; h = relu(z1); q = tanh(h W2^T + b2)   (nonlinear q)
@@ -15,21 +17,41 @@
 //   K3: dl = A (f dB^T - s_red); dF = A dB + dz1 W0, and dW0, db0, dW2, db2,
 //       dq_max, recomputing every activation from (m, s) tile by tile.
 //
-// What bounds it: arithmetic. Each row costs 2 K D + 2 D^2 (+ the backward's
-// three more products) FMAs against 4 K bytes read, about 80 flop per byte
-// at K = 512, above the card's f32 balance point. The products run in true
-// f32 on the CUDA cores (FFMA): the TPU kernel pins its f32 dots to HIGHEST,
-// so TF32 tensor cores are not used here.
+// What bounds them: arithmetic. Each row costs 2 K D + 2 D^2 FMAs of the
+// recompute (+ the backward's products) against 4 K bytes read, about 80
+// flop per byte at K = 512, above the card's balance point.
 //
-// Design (simple first): the TPU grid walks one bag serially over N. Here
+// K1 and K2 (simple first): the TPU grid walks one bag serially over N. Here
 // the valid rows are split across G blocks (at most what fits on the card at
 // once); each block walks its rows in tiles of T = 32 rows staged in shared
 // memory (64 KB at K = 512). Weights stream through a padded shared-memory
-// chunk of 32 x 128 floats. Each block writes partials (K1: its own m, s and
-// acc [C, K]; K2/K3: its partial sums) and a second small kernel merges them
-// in a fixed block order, so a rerun is bitwise equal (no float atomics).
-// Rows >= n_valid are never read: their attention weight is exactly 0, and
-// K3 writes zeros for their dF rows.
+// chunk of 32 x 128 floats. The products run in true f32 on the CUDA cores
+// (FFMA). Each block writes partials (K1: its own m, s and acc [C, K]; K2:
+// its partial sums) and a second small kernel merges them in a fixed block
+// order, so a rerun is bitwise equal (no float atomics).
+//
+// K3 does 32.6 GFLOP at N = 65529, K = 512, C = 2 (z1, the q-MLP, dW2, dh,
+// dW0 and dF's dz1 W0, each 2 N K D or 2 N D^2, plus the small products with
+// dB and q_max; 24 GFLOP without dF). Its bound is 0.486 ms in f32 FFMA (67
+// TFLOP/s) and 0.198 ms as 3xTF32 on the tensor cores (3 x 32.6 GFLOP at
+// 495 TFLOP/s). The design:
+//  * every product runs on the tensor cores, mma.sync m16n8k8 with tf32
+//    operands, in the 3xTF32 split (x = hi + lo; hi hi + hi lo + lo hi):
+//    the counterpart of the TPU kernel's Precision.HIGHEST, f32-level error
+//    where one TF32 pass would lose three digits;
+//  * the rows pass takes tiles of 128 rows; the feats tile and [W0; dB]
+//    stream through a double-buffered cp.async ring in K chunks of 32, with
+//    dB's C rows as extra output columns, so z1 and f . dB come from one
+//    pass over f; W2 stays resident in shared memory; dW2, db0, db2 and
+//    dq_max stay per CTA;
+//  * dW0 leaves the per-tile loop: the rows pass writes dz1 [N, 128] (and
+//    A [N, C] where dF is wanted), and dW0 = dz1^T f is a split-N product,
+//    each CTA holding a [128 x 128] slab in registers;
+//  * dF = dz1 W0 + A dB is a third product, launched only when dF is
+//    wanted;
+//  * every partial merges in a fixed order, with no float atomics, so a
+//    rerun is bitwise equal. Rows >= n_valid are never read: their attention
+//    weight is exactly 0, and K3 writes zeros for their dF rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -310,174 +332,574 @@ __global__ void __launch_bounds__(NT) pool_bwd1_kernel(
 }
 
 // ---------------------------------------------------------------- K3 ---
-// Per-block partial sums in global memory, P floats per block:
-//   dW0 [D*K] | db0 [D] | dW2 [D*D] | db2 [D] | dqm [C*D]
-// Shared memory: sF [T*K] | sM [IC*LDM] | sH [T*D] | sQ [T*D] | sG [T*D]
-//                | sQm [C*D] | sL [T*CMAX] | sDl [T*CMAX] | sDB [C*K]
-__host__ __device__ __forceinline__ int64_t bwd2_partial_size(int K, int C) {
-  return (int64_t)D * K + D + D * D + D + C * D;
+// Three passes, all on the tensor cores in 3xTF32 (see the note at the top):
+//   rows  (pool_bwd2_rows_kernel, G CTAs, tiles of TR rows): recompute z1,
+//         h, q, A; dl, dz2, dz1; dz1 (and A where dF is wanted) to the
+//         scratch Z [rows, zld]; per-CTA partials of db0, dW2, db2, dq_max.
+//   dW0   (pool_bwd2_dw0_kernel, D x 128 slabs x S row splits): dz1^T f as
+//         a split-N product, one [D, 128] slab per CTA in registers.
+//   dF    (pool_bwd2_df_kernel, only when dF is wanted): [dz1 | A] times
+//         [W0; dB] over tiles of 64 rows x 128 columns.
+// Partials are summed by reduce_partials in a fixed order (no atomics).
+
+namespace k3 {
+constexpr int TR = 128;              // rows per tile of the rows pass
+constexpr int KC = 32;               // depth of one streamed K chunk
+constexpr int LDK = KC + 4;          // row of a staged chunk (ld / 4 odd)
+constexpr int NB = D + CMAX;         // z1's D columns + dB's C (padded)
+constexpr int LDA = D + 4;           // row of an activation tile (ld / 4 odd)
+constexpr int RING = 2 * (TR + NB) * LDK;   // two stages of (feats, [W0; dB])
+constexpr int ACT = TR * LDA;
+constexpr int RC = 32;               // rows per stage of the dW0 pass
+constexpr int LD2 = 128 + 8;         // row of a dW0-pass stage (ld / 8 odd)
+constexpr int TR3 = 64;              // rows per tile of the dF pass
+constexpr int LDZ3 = NB + 4;         // row of the dF pass's Z tile (ld / 4 odd)
+constexpr int LDB3 = 128 + 8;        // row of the dF pass's [W0; dB] slab
+constexpr int SLAB = 128;            // output columns per CTA (dW0, dF passes)
+static_assert(RING >= ACT, "the activation tile aliases the chunk ring");
+
+// Per-CTA partials of the rows pass: db0 [D] | dW2 [D*D] | db2 [D] | dqm [C*D]
+__host__ __device__ __forceinline__ int64_t rows_partial_size(int C) {
+  return (int64_t)D + D * D + D + (int64_t)C * D;
 }
 
-// part[(d0 + dd) * ldo + j] += sum_r sA[r * D + d0 + dd] * sB[r * ldb + j] for
-// dd < 64, j = j0 + tid % D (if j < J), d0 = (tid / D) * 64: a [D, J] outer
-// product accumulated over the tile's T rows.
-__device__ __forceinline__ void outer_accumulate(float* __restrict__ part, int ldo,
-                                                 const float* sA, const float* sB, int ldb,
-                                                 int J, int j0) {
-  constexpr int DD = D / (NT / D);  // 64 rows of the gradient per thread
-  const int j = j0 + threadIdx.x % D, d0 = (threadIdx.x / D) * DD;
-  if (j >= J) return;
-  float a[DD];
+__host__ __device__ __forceinline__ size_t rows_smem_floats(bool nl) {
+  return (size_t)RING + (nl ? 2 * (size_t)ACT : 0) + 3 * (size_t)CMAX * TR;
+}
+}  // namespace k3
+
+// 3xTF32 on mma.sync: x = hi + lo with hi = tf32(x), lo = tf32(x - hi);
+// a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi, f32-level error (the dropped
+// a_lo b_lo is 2^-22 relative).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b over one k8 step. The three products go into a fresh
+// accumulator, small terms first, which is then added to d by an f32 add
+// (round to nearest): the tensor core's own accumulation rounds toward zero,
+// and over a long K that bias alone would exceed f32-level error.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, al, bh);
+  mma_tf32(t, ah, bl);
+  mma_tf32(t, ah, bh);
 #pragma unroll
-  for (int dd = 0; dd < DD; ++dd) a[dd] = 0.f;
-  for (int r = 0; r < T; ++r) {
-    const float bv = sB[r * ldb + j];
-#pragma unroll
-    for (int dd = 0; dd < DD; ++dd) a[dd] = fmaf(sA[r * D + d0 + dd], bv, a[dd]);
+  for (int i = 0; i < 4; ++i) d[i] += t[i];
+}
+
+// Fragments of mma.m16n8k8 (PTX ISA), g = lane / 4, t = lane % 4:
+//   A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+//   B (8 x 8):  b0 (k = t, n = g), b1 (k = t + 4, n = g)
+//   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+// A(m, k) = p[m * SM + k * SK] and B(k, n) = p[k * SK + n * SN] from shared
+// memory, split into (hi, lo).
+template <int SM, int SK>
+__device__ __forceinline__ void frag_a(uint32_t (&h)[4], uint32_t (&l)[4], const float* p) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  split_tf32(p[g * SM + t * SK], h[0], l[0]);
+  split_tf32(p[(g + 8) * SM + t * SK], h[1], l[1]);
+  split_tf32(p[g * SM + (t + 4) * SK], h[2], l[2]);
+  split_tf32(p[(g + 8) * SM + (t + 4) * SK], h[3], l[3]);
+}
+
+template <int SK, int SN>
+__device__ __forceinline__ void frag_b(uint32_t (&h)[2], uint32_t (&l)[2], const float* p) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  split_tf32(p[t * SK + g * SN], h[0], l[0]);
+  split_tf32(p[(t + 4) * SK + g * SN], h[1], l[1]);
+}
+
+// 16-byte cp.async; src_ok == false fills the 16 bytes with zeros (src is
+// then not read).
+__device__ __forceinline__ void cp16(float* smem, const float* src, bool src_ok) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage K chunk [k0, k0 + KC) of the tile's feats rows into sF [TR][LDK]
+// (rows >= rows and columns >= K zero) and of [W0; dB; 0] into sB [NB][LDK].
+__device__ __forceinline__ void stage_rows_chunk(float* sF, float* sB,
+                                                 const float* __restrict__ feats,
+                                                 const float* __restrict__ w0,
+                                                 const float* __restrict__ db, int64_t row0,
+                                                 int rows, int K, int C, int k0) {
+  constexpr int V = k3::KC / 4;
+  for (int e = threadIdx.x; e < k3::TR * V; e += NT) {
+    const int r = e / V, k = k0 + 4 * (e % V);
+    const bool ok = r < rows && k < K;
+    cp16(sF + r * k3::LDK + (k - k0), ok ? feats + (row0 + r) * K + k : feats, ok);
   }
-#pragma unroll
-  for (int dd = 0; dd < DD; ++dd) part[(int64_t)(d0 + dd) * ldo + j] += a[dd];
+  for (int e = threadIdx.x; e < k3::NB * V; e += NT) {
+    const int n = e / V, k = k0 + 4 * (e % V);
+    const bool ok = k < K && n < D + C;
+    const float* src = n < D ? w0 + (int64_t)n * K + k : db + (int64_t)(n - D) * K + k;
+    cp16(sB + n * k3::LDK + (k - k0), ok ? src : w0, ok);
+  }
 }
 
+// The rows pass. Warp w owns rows [16 w, 16 w + 16) of every [TR, *] product
+// and rows [16 w, 16 w + 16) of dW2. Shared memory (floats):
+//   ring [RING] (aliased by sG [TR][LDA]: q, then dz2 / dz1)
+//   | sH [TR][LDA] | sW2 [D][LDA] (nonlinear only)
+//   | sQm [CMAX][D] | sDa [TR][CMAX] | sDl [TR][CMAX]
 template <bool NL>
-__global__ void __launch_bounds__(NT) pool_bwd2_kernel(
+__global__ void __launch_bounds__(NT, 1) pool_bwd2_rows_kernel(
     const float* __restrict__ feats, Weights w, const float* __restrict__ m_stat,
     const float* __restrict__ s_stat, const float* __restrict__ db,
-    const float* __restrict__ s_red, int n_valid, int K, int C, int tpc,
-    float* __restrict__ part, float* __restrict__ df) {
+    const float* __restrict__ s_red, int n_valid, int K, int C, int tpc, int zld,
+    int write_a, float* __restrict__ part, float* __restrict__ z) {
+  using namespace k3;
   extern __shared__ float4 smem4[];
-  float* sF = reinterpret_cast<float*>(smem4);
-  float* sM = sF + T * K;
-  float* sH = sM + IC * LDM;
-  float* sQ = sH + T * D;
-  float* sG = sQ + T * D;
-  float* sQm = sG + T * D;
-  float* sL = sQm + C * D;
-  float* sDl = sL + T * CMAX;
-  float* sDB = sDl + T * CMAX;
-  const int tid = threadIdx.x;
-  const int col = tid % D, r0 = (tid / D) * RPT;
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* sG = ring;
+  float* sH = ring + RING;
+  float* sW2 = sH + ACT;
+  float* sQm = NL ? sW2 + ACT : sH;
+  float* sDa = sQm + CMAX * D;
+  float* sDl = sDa + TR * CMAX;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;            // this warp's first row (or dW2 row)
   const float scale = 1.f / sqrtf((float)D);
-  const int64_t P = bwd2_partial_size(K, C);
-  float* pw0 = part + (int64_t)blockIdx.x * P;
-  float* pb0 = pw0 + (int64_t)D * K;
-  float* pw2 = pb0 + D;
-  float* pb2 = pw2 + D * D;
-  float* pqm = pb2 + D;
-  for (int64_t e = tid; e < P; e += NT) pw0[e] = 0.f;
+
   for (int e = tid; e < C * D; e += NT) sQm[e] = w.qm[e];
-  for (int e = tid; e < C * K; e += NT) sDB[e] = db[e];
-  const Range rg = block_tiles(n_valid, tpc);
-  for (int t = rg.t_begin; t < rg.t_end; ++t) {
-    const int64_t row0 = (int64_t)t * T;
-    const int rows = min(T, (int)(n_valid - row0));
+  if constexpr (NL)
+    for (int e = tid; e < D * D; e += NT) sW2[(e / D) * LDA + e % D] = w.w2[e];
+
+  float wacc[NL ? D / 8 : 1][4];       // dW2 rows [wr, wr + 16), all D columns
+#pragma unroll
+  for (int j = 0; j < (NL ? D / 8 : 1); ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wacc[j][i] = 0.f;
+  float dqm[CMAX * D / NT];            // dq_max[c][d], e = tid + NT i
+#pragma unroll
+  for (int i = 0; i < CMAX * D / NT; ++i) dqm[i] = 0.f;
+  float bsum = 0.f;                    // tid < D: db0[tid]; else db2[tid - D]
+
+  const int tiles = (n_valid + TR - 1) / TR;
+  const int t_begin = min((int)blockIdx.x * tpc, tiles), t_end = min(t_begin + tpc, tiles);
+  const int nch = (K + KC - 1) / KC;
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int64_t row0 = (int64_t)tile * TR;
+    const int rows = min(TR, (int)(n_valid - row0));
+    __syncthreads();  // the previous tile's sG is consumed
+
+    // z1 | da = f [W0; dB]^T, streamed over K in chunks through the ring
+    float acc[NB / 8][4];
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+    stage_rows_chunk(ring, ring + TR * LDK, feats, w.w0, db, row0, rows, K, C, 0);
+    cp_commit();
+    for (int ch = 0; ch < nch; ++ch) {
+      if (ch + 1 < nch) {
+        float* nxt = ring + ((ch + 1) & 1) * (TR + NB) * LDK;
+        stage_rows_chunk(nxt, nxt + TR * LDK, feats, w.w0, db, row0, rows, K, C,
+                         (ch + 1) * KC);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      const float* sF = ring + (ch & 1) * (TR + NB) * LDK;
+      const float* sB = sF + TR * LDK;
+#pragma unroll 1
+      for (int ks = 0; ks < KC; ks += 8) {
+        uint32_t ah[4], al[4];
+        frag_a<LDK, 1>(ah, al, sF + wr * LDK + ks);
+#pragma unroll
+        for (int j = 0; j < NB / 8; ++j) {
+          uint32_t bh[2], bl[2];
+          frag_b<1, LDK>(bh, bl, sB + j * 8 * LDK + ks);
+          mma3(acc[j], ah, al, bh, bl);
+        }
+      }
+      __syncthreads();  // this stage is consumed before it is refilled
+    }
+    // h = relu(z1 + b0) -> sH (nonlinear) or q = z1 + b0 -> sG (linear);
+    // da -> sDa
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wr + g + (i >> 1) * 8, d = j * 8 + 2 * t + (i & 1);
+        const float z1 = acc[j][i] + w.b0[d];
+        if constexpr (NL) sH[r * LDA + d] = fmaxf(z1, 0.f);
+        else sG[r * LDA + d] = z1;
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      sDa[(wr + g + (i >> 1) * 8) * CMAX + 2 * t + (i & 1)] = acc[D / 8][i];
     __syncthreads();
-    load_tile(sF, feats, row0, rows, K);
-    recompute<NL>(sF, K, w, C, rows, sQm, sH, sQ, sL, sM);
-    // A (over sL) and dl = A (f . dB - s_red)
-    for (int e = tid; e < T * C; e += NT) {
+
+    if constexpr (NL) {  // q = tanh(h W2^T + b2) -> sG
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll 1
+      for (int ks = 0; ks < D; ks += 8) {
+        uint32_t ah[4], al[4];
+        frag_a<LDA, 1>(ah, al, sH + wr * LDA + ks);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          uint32_t bh[2], bl[2];
+          frag_b<1, LDA>(bh, bl, sW2 + j * 8 * LDA + ks);
+          mma3(acc[j], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = wr + g + (i >> 1) * 8, d = j * 8 + 2 * t + (i & 1);
+          sG[r * LDA + d] = tanhf(acc[j][i] + w.b2[d]);
+        }
+      __syncthreads();
+    }
+
+    // logits, A and dl = A (f . dB - s_red) per (row, class); A to Z
+    for (int e = tid; e < TR * C; e += NT) {
       const int r = e / C, c = e % C;
       float a = 0.f, dl = 0.f;
       if (r < rows) {
-        a = attn_weight(sL[r * CMAX + c], m_stat[c], s_stat[c]);
-        float da = 0.f;
-        for (int k = 0; k < K; ++k) da = fmaf(sF[r * K + k], sDB[c * K + k], da);
-        dl = a * (da - s_red[c]);
+        float l = 0.f;
+        for (int k = 0; k < D; ++k) l = fmaf(sG[r * LDA + k], sQm[c * D + k], l);
+        a = attn_weight(l * scale, m_stat[c], s_stat[c]);
+        dl = a * (sDa[r * CMAX + c] - s_red[c]);
       }
-      sL[r * CMAX + c] = a;
       sDl[r * CMAX + c] = dl;
+      if (write_a) z[(row0 + r) * zld + D + c] = a;
     }
+    if (write_a)
+      for (int e = tid; e < TR * (CMAX - C); e += NT)
+        z[(row0 + e / (CMAX - C)) * zld + D + C + e % (CMAX - C)] = 0.f;
     __syncthreads();
-    // dq = scale dl q_max; nonlinear: dz2 = dq (1 - q^2) -> sG; linear: dz1 = dq -> sG
+
+    // dq_max += dl^T q (scaled at the end), one (c, d) per thread and slot
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int rr = r0 + r;
-      float dq = 0.f;
-      for (int c = 0; c < C; ++c) dq = fmaf(sDl[rr * CMAX + c], sQm[c * D + col], dq);
-      dq *= scale;
-      if (NL) {
-        const float q = sQ[rr * D + col];
-        dq *= (1.f - q * q);
-      }
-      sG[rr * D + col] = dq;
-    }
-    // dq_max += scale dl^T q
-    for (int e = tid; e < C * D; e += NT) {
-      const int c = e / D, d = e % D;
-      float a = 0.f;
-      for (int r = 0; r < T; ++r) a = fmaf(sDl[r * CMAX + c], sQ[r * D + d], a);
-      pqm[e] += a * scale;
-    }
-    __syncthreads();
-    float* sZ1g = sG;  // dz1
-    if (NL) {
-      outer_accumulate(pw2, D, sG, sH, D, D, 0);  // dW2 += dz2^T h
-      if (tid < D) {
+    for (int i = 0; i < CMAX * D / NT; ++i) {
+      const int e = tid + NT * i, c = e / D, d = e % D;
+      if (c < C) {
         float a = 0.f;
-        for (int r = 0; r < T; ++r) a += sG[r * D + tid];
-        pb2[tid] += a;
+        for (int r = 0; r < TR; ++r) a = fmaf(sDl[r * CMAX + c], sG[r * LDA + d], a);
+        dqm[i] += a;
       }
-      float acc[RPT];
-      tile_product(acc, sG, D, w.w2, false, D, D, 0, sM);  // dh = dz2 W2
-      // dz1 = dh * (z1 > 0) -> sQ (q is no longer read)
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int rr = r0 + r;
-        sQ[rr * D + col] = sH[rr * D + col] > 0.f ? acc[r] : 0.f;
+    }
+    __syncthreads();
+
+    // dq = scale dl q_max; nonlinear: dz2 = dq (1 - q^2), linear: dz1 = dq;
+    // in place over q in sG
+    for (int e = tid; e < TR * D / 4; e += NT) {
+      const int r = e / (D / 4), d = 4 * (e % (D / 4));
+      float4 q = *reinterpret_cast<float4*>(sG + r * LDA + d);
+      float4 dq = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int c = 0; c < C; ++c) {
+        const float dl = sDl[r * CMAX + c];
+        const float4 qm = *reinterpret_cast<const float4*>(sQm + c * D + d);
+        dq.x = fmaf(dl, qm.x, dq.x);
+        dq.y = fmaf(dl, qm.y, dq.y);
+        dq.z = fmaf(dl, qm.z, dq.z);
+        dq.w = fmaf(dl, qm.w, dq.w);
       }
-      __syncthreads();
-      sZ1g = sQ;
+      if constexpr (NL) {
+        q.x = dq.x * scale * (1.f - q.x * q.x);
+        q.y = dq.y * scale * (1.f - q.y * q.y);
+        q.z = dq.z * scale * (1.f - q.z * q.z);
+        q.w = dq.w * scale * (1.f - q.w * q.w);
+      } else {
+        q = make_float4(dq.x * scale, dq.y * scale, dq.z * scale, dq.w * scale);
+      }
+      *reinterpret_cast<float4*>(sG + r * LDA + d) = q;
     }
-    if (tid < D) {
-      float a = 0.f;
-      for (int r = 0; r < T; ++r) a += sZ1g[r * D + tid];
-      pb0[tid] += a;
-    }
-    for (int j0 = 0; j0 < K; j0 += D) outer_accumulate(pw0, K, sZ1g, sF, K, K, j0);
-    // dF = A dB + dz1 W0 for the tile's rows
-    for (int j0 = 0; j0 < K; j0 += D) {
-      float acc[RPT];
-      tile_product(acc, sZ1g, D, w.w0, false, D, K, j0, sM);
-      const int k = j0 + col;
-      if (k < K) {
+    __syncthreads();
+
+    if constexpr (NL) {
+      if (tid >= D)  // db2 += column sums of dz2
+        for (int r = 0; r < TR; ++r) bsum += sG[r * LDA + tid - D];
+      // dW2 += dz2^T h: A(d, r) = sG[r][d], B(r, j) = sH[r][j]
+#pragma unroll 1
+      for (int ks = 0; ks < TR; ks += 8) {
+        uint32_t ah[4], al[4];
+        frag_a<1, LDA>(ah, al, sG + ks * LDA + wr);
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const int rr = r0 + r;
-          if (rr < rows) {
-            float v = acc[r];
-            for (int c = 0; c < C; ++c) v = fmaf(sL[rr * CMAX + c], sDB[c * K + k], v);
-            df[(row0 + rr) * K + k] = v;
-          }
+        for (int j = 0; j < D / 8; ++j) {
+          uint32_t bh[2], bl[2];
+          frag_b<LDA, 1>(bh, bl, sH + ks * LDA + j * 8);
+          mma3(wacc[j], ah, al, bh, bl);
         }
       }
+      // dh = dz2 W2: A(r, d) = sG[r][d], B(d, j) = sW2[d][j]
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll 1
+      for (int ks = 0; ks < D; ks += 8) {
+        uint32_t ah[4], al[4];
+        frag_a<LDA, 1>(ah, al, sG + wr * LDA + ks);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          uint32_t bh[2], bl[2];
+          frag_b<LDA, 1>(bh, bl, sW2 + ks * LDA + j * 8);
+          mma3(acc[j], ah, al, bh, bl);
+        }
+      }
+      __syncthreads();  // every warp is done reading dz2
+      // dz1 = dh * (z1 > 0) -> this warp's rows of sG
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = wr + g + (i >> 1) * 8, d = j * 8 + 2 * t + (i & 1);
+          sG[r * LDA + d] = sH[r * LDA + d] > 0.f ? acc[j][i] : 0.f;
+        }
+      __syncthreads();
+    }
+    // db0 += column sums of dz1; dz1 -> Z (rows past n_valid are zero)
+    if (tid < D)
+      for (int r = 0; r < TR; ++r) bsum += sG[r * LDA + tid];
+    for (int e = tid; e < TR * D / 4; e += NT) {
+      const int r = e / (D / 4), d = 4 * (e % (D / 4));
+      *reinterpret_cast<float4*>(z + (row0 + r) * zld + d) =
+          *reinterpret_cast<const float4*>(sG + r * LDA + d);
     }
   }
+
+  // this CTA's partials: db0 | dW2 | db2 | dq_max
+  float* p = part + (int64_t)blockIdx.x * rows_partial_size(C);
+  if (tid < D) p[tid] = bsum;
+  else p[D + D * D + tid - D] = NL ? bsum : 0.f;
+  if constexpr (NL) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[D + (wr + g + (i >> 1) * 8) * D + j * 8 + 2 * t + (i & 1)] = wacc[j][i];
+  } else {
+    for (int e = tid; e < D * D; e += NT) p[D + e] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < CMAX * D / NT; ++i) {
+    const int e = tid + NT * i;
+    if (e < C * D) p[2 * D + D * D + e] = dqm[i] * scale;
+  }
+}
+
+// dW0 partial of row split blockIdx.y, columns [128 blockIdx.x, + 128):
+// part[split][d][k] = sum_n Z[n][d] f[n][k] over the split's rows. Warps 4 x 2
+// own 32 x 64 of the [D, 128] slab. Shared memory: 2 stages of
+// sZ [RC][LD2] | sF [RC][LD2].
+__global__ void __launch_bounds__(NT) pool_bwd2_dw0_kernel(
+    const float* __restrict__ z, int zld, const float* __restrict__ feats, int n_valid,
+    int K, int rps, float* __restrict__ part) {
+  using namespace k3;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 64;
+  const int k0 = blockIdx.x * SLAB;
+  const int64_t r_begin = (int64_t)blockIdx.y * rps;
+  const int64_t r_end = min((int64_t)n_valid, r_begin + rps);
+  const int nch = (int)((r_end - r_begin + RC - 1) / RC);
+
+  auto stage = [&](int ch) {
+    float* sZ = ring + (ch & 1) * 2 * RC * LD2;
+    float* sF = sZ + RC * LD2;
+    for (int e = tid; e < RC * (D / 4); e += NT) {
+      const int r = e / (D / 4), v = 4 * (e % (D / 4));
+      const int64_t n = r_begin + (int64_t)ch * RC + r;
+      const bool ok = n < r_end;
+      cp16(sZ + r * LD2 + v, ok ? z + n * zld + v : z, ok);
+      const bool okf = ok && k0 + v < K;
+      cp16(sF + r * LD2 + v, okf ? feats + n * K + k0 + v : feats, okf);
+    }
+  };
+
+  float acc[2][SLAB / 2 / 8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < SLAB / 2 / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][j][i] = 0.f;
+  if (nch > 0) {
+    stage(0);
+    cp_commit();
+  }
+  for (int ch = 0; ch < nch; ++ch) {
+    if (ch + 1 < nch) {
+      stage(ch + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* sZ = ring + (ch & 1) * 2 * RC * LD2;
+    const float* sF = sZ + RC * LD2;
+#pragma unroll
+    for (int ks = 0; ks < RC; ks += 8) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)  // A(d, n) = sZ[n][d]
+        frag_a<1, LD2>(ah[mi], al[mi], sZ + ks * LD2 + wm + mi * 16);
+#pragma unroll
+      for (int j = 0; j < SLAB / 2 / 8; ++j) {
+        uint32_t bh[2], bl[2];       // B(n, k) = sF[n][k]
+        frag_b<LD2, 1>(bh, bl, sF + ks * LD2 + wn + j * 8);
+        mma3(acc[0][j], ah[0], al[0], bh, bl);
+        mma3(acc[1][j], ah[1], al[1], bh, bl);
+      }
+    }
+    __syncthreads();
+  }
+  float* p = part + (int64_t)blockIdx.y * D * K;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < SLAB / 2 / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = wm + mi * 16 + g + h * 8, k = k0 + wn + j * 8 + 2 * t;
+        if (k < K)
+          *reinterpret_cast<float2*>(p + (int64_t)d * K + k) =
+              make_float2(acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
+      }
+}
+
+// dF rows [64 (blockIdx.x / slabs), + 64), columns [128 (blockIdx.x % slabs),
+// + 128): dF = [dz1 | A] [W0; dB; 0] (depth NB); the CTAs of one row tile are
+// neighbours, so its Z tile is read from device memory once. Warps 2 x 4 own
+// 32 x 32.
+// Shared memory: sZ [TR3][LDZ3] | sB [NB][LDB3].
+__global__ void __launch_bounds__(NT) pool_bwd2_df_kernel(
+    const float* __restrict__ z, const float* __restrict__ w0, const float* __restrict__ db,
+    int n_valid, int K, int C, float* __restrict__ df) {
+  using namespace k3;
+  extern __shared__ float4 smem4[];
+  float* sZ = reinterpret_cast<float*>(smem4);
+  float* sB = sZ + TR3 * LDZ3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+  const int slabs = (K + SLAB - 1) / SLAB;
+  const int k0 = (blockIdx.x % slabs) * SLAB;
+  const int64_t row0 = (int64_t)(blockIdx.x / slabs) * TR3;
+  for (int e = tid; e < TR3 * (NB / 4); e += NT) {
+    const int r = e / (NB / 4), v = 4 * (e % (NB / 4));
+    cp16(sZ + r * LDZ3 + v, z + (row0 + r) * NB + v, true);
+  }
+  for (int e = tid; e < NB * (SLAB / 4); e += NT) {
+    const int d = e / (SLAB / 4), v = 4 * (e % (SLAB / 4));
+    const bool ok = k0 + v < K && d < D + C;
+    const float* src = d < D ? w0 + (int64_t)d * K + k0 + v : db + (int64_t)(d - D) * K + k0 + v;
+    cp16(sB + d * LDB3 + v, ok ? src : w0, ok);
+  }
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][j][i] = 0.f;
+#pragma unroll 1
+  for (int ks = 0; ks < NB; ks += 8) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)  // A(r, d) = sZ[r][d]
+      frag_a<LDZ3, 1>(ah[mi], al[mi], sZ + (wm + mi * 16) * LDZ3 + ks);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t bh[2], bl[2];         // B(d, k) = sB[d][k]
+      frag_b<LDB3, 1>(bh, bl, sB + ks * LDB3 + wn + j * 8);
+      mma3(acc[0][j], ah[0], al[0], bh, bl);
+      mma3(acc[1][j], ah[1], al[1], bh, bl);
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t n = row0 + wm + mi * 16 + g + h * 8;
+        const int k = k0 + wn + j * 8 + 2 * t;
+        if (n < n_valid && k < K)
+          *reinterpret_cast<float2*>(df + n * K + k) =
+              make_float2(acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
+      }
 }
 
 size_t smem_bytes(int which, int K, int C) {
   size_t f = (size_t)T * K + IC * LDM + (size_t)C * D + T * CMAX;
   if (which == 1) f += T * D + (size_t)C * K + 3 * CMAX;
-  else if (which == 2) f += T * D + (size_t)C * K + CMAX * NT;
-  else f += 3 * T * D + T * CMAX + (size_t)C * K;
+  else f += T * D + (size_t)C * K + CMAX * NT;
   return f * sizeof(float);
 }
 
 const void* kernel_of(int which, bool nl) {
   if (which == 1) return nl ? (const void*)pool_fwd_kernel<true> : (const void*)pool_fwd_kernel<false>;
-  if (which == 2) return nl ? (const void*)pool_bwd1_kernel<true> : (const void*)pool_bwd1_kernel<false>;
-  return nl ? (const void*)pool_bwd2_kernel<true> : (const void*)pool_bwd2_kernel<false>;
+  return nl ? (const void*)pool_bwd1_kernel<true> : (const void*)pool_bwd1_kernel<false>;
 }
 
-// Checks shared by every entry point; sets the kernel's shared-memory limit.
-int prepare(int which, int nonlinear, int n, int n_valid, int K, int C, size_t* smem) {
-  if (which < 1 || which > 3 || K <= 0 || K % 4 != 0 || C < 1 || C > CMAX ||
-      n_valid < 1 || n_valid > n)
-    return (int)cudaErrorInvalidValue;
-  *smem = smem_bytes(which, K, C);
+bool bad_args(int n, int n_valid, int K, int C) {
+  return K <= 0 || K % 4 != 0 || C < 1 || C > CMAX || n_valid < 1 || n_valid > n;
+}
+
+int smem_limit() {
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (*smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  return limit;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Checks shared by the K1 and K2 entry points; sets the kernel's
+// shared-memory limit.
+int prepare(int which, int nonlinear, int n, int n_valid, int K, int C, size_t* smem) {
+  if ((which != 1 && which != 2) || bad_args(n, n_valid, K, C))
+    return (int)cudaErrorInvalidValue;
+  *smem = smem_bytes(which, K, C);
+  if (*smem > (size_t)smem_limit()) return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(kernel_of(which, nonlinear != 0),
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
@@ -494,25 +916,78 @@ Weights weights(const void* w0, const void* b0, const void* w2, const void* b2,
                  static_cast<const float*>(qm)};
 }
 
+// K3's launch shape and scratch (floats): part1 [G, rows_partial_size] |
+// part2 [S, D, K] | Z [tiles * TR, zld].
+struct Bwd2Plan {
+  int G, tpc, S, rps, slabs, zld;
+  int64_t part1, part2, z;
+  size_t smem1, smem2, smem3;
+  const void* rows_kernel;
+};
+
+int bwd2_plan(int nonlinear, int n, int n_valid, int K, int C, int need_df, Bwd2Plan* p) {
+  using namespace k3;
+  if (bad_args(n, n_valid, K, C)) return (int)cudaErrorInvalidValue;
+  const bool nl = nonlinear != 0;
+  p->rows_kernel = nl ? (const void*)pool_bwd2_rows_kernel<true>
+                      : (const void*)pool_bwd2_rows_kernel<false>;
+  p->smem1 = rows_smem_floats(nl) * sizeof(float);
+  p->smem2 = (size_t)4 * RC * LD2 * sizeof(float);
+  p->smem3 = ((size_t)TR3 * LDZ3 + (size_t)NB * LDB3) * sizeof(float);
+  const size_t limit = (size_t)smem_limit();
+  if (p->smem1 > limit || p->smem2 > limit || p->smem3 > limit)
+    return (int)cudaErrorInvalidValue;
+  const void* kernels[3] = {p->rows_kernel, (const void*)pool_bwd2_dw0_kernel,
+                            (const void*)pool_bwd2_df_kernel};
+  const size_t smem[3] = {p->smem1, p->smem2, p->smem3};
+  for (int i = 0; i < 3; ++i) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem[i]);
+    if (err != 0) return err;
+  }
+  const int sms = sm_count();
+  int per_sm = 0, per_sm2 = 0;
+  int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p->rows_kernel, NT,
+                                                               p->smem1);
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm2, (const void*)pool_bwd2_dw0_kernel, NT, p->smem2);
+  if (err != 0) return err;
+  if (per_sm < 1 || per_sm2 < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tiles = (n_valid + TR - 1) / TR;
+  const int gmax = per_sm * sms;
+  p->tpc = (tiles + gmax - 1) / gmax;
+  p->G = (tiles + p->tpc - 1) / p->tpc;
+  // dW0: enough row splits that every SM holds per_sm2 CTAs
+  p->slabs = (K + SLAB - 1) / SLAB;
+  const int want = (per_sm2 * sms + p->slabs - 1) / p->slabs;
+  const int per = (n_valid + want - 1) / want;
+  p->rps = (per + RC - 1) / RC * RC;
+  p->S = (n_valid + p->rps - 1) / p->rps;
+  p->zld = need_df ? NB : D;
+  p->part1 = (int64_t)p->G * rows_partial_size(C);
+  p->part2 = (int64_t)p->S * D * K;
+  p->z = (int64_t)tiles * TR * p->zld;
+  return 0;
+}
+
 }  // namespace
 
 // Number of blocks G to launch for kernel `which` (1 = forward, 2 = backward
-// pass 1, 3 = backward pass 2): at most the blocks the card holds at once,
-// at most one per tile. Returns G > 0, or -(CUDA error code).
+// pass 1): at most the blocks the card holds at once, at most one per tile.
+// Returns G > 0, or -(CUDA error code).
 extern "C" int tpumil_attention_pool_grid(int which, int nonlinear, int n, int n_valid,
                                           int K, int C) {
   size_t smem = 0;
   int err = prepare(which, nonlinear, n, n_valid, K, C, &smem);
   if (err != 0) return -err;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int per_sm = 0;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel_of(which, nonlinear != 0), NT, smem);
   if (err != 0) return -err;
   if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
   const int tiles = (n_valid + T - 1) / T;
-  const int gmax = per_sm * sms;
+  const int gmax = per_sm * sm_count();
   const int tpc = (tiles + gmax - 1) / gmax;
   return (tiles + tpc - 1) / tpc;
 }
@@ -569,46 +1044,76 @@ extern "C" int tpumil_attention_pool_bwd1(const void* feats, const void* w0, con
   return (int)cudaGetLastError();
 }
 
-// Size of K3's per-block partial sums and of its packed gradient output.
+// Size of K3's packed gradient output.
 extern "C" long long tpumil_attention_pool_bwd2_size(int K, int C) {
-  return (long long)bwd2_partial_size(K, C);
+  return (long long)D * K + k3::rows_partial_size(C);
 }
 
-// K3. part: G * P floats of scratch (P from tpumil_attention_pool_bwd2_size).
-// Outputs dF [n, K] (rows >= n_valid set to 0) and grads [P] packed as
-// dW0 [D, K] | db0 [D] | dW2 [D, D] | db2 [D] | dq_max [C, D].
+// Floats of scratch that K3 needs, or -(CUDA error code).
+extern "C" long long tpumil_attention_pool_bwd2_scratch(int nonlinear, int n, int n_valid,
+                                                        int K, int C, int need_df) {
+  Bwd2Plan p;
+  const int err = bwd2_plan(nonlinear, n, n_valid, K, C, need_df, &p);
+  if (err != 0) return -(long long)err;
+  return (long long)(p.part1 + p.part2 + p.z);
+}
+
+// K3. scratch: tpumil_attention_pool_bwd2_scratch floats. Outputs grads
+// packed as dW0 [D, K] | db0 [D] | dW2 [D, D] | db2 [D] | dq_max [C, D] and,
+// when need_df, dF [n, K] (rows >= n_valid set to 0; df may be null
+// otherwise).
 extern "C" int tpumil_attention_pool_bwd2(const void* feats, const void* w0, const void* b0,
                                           const void* w2, const void* b2, const void* qm,
                                           const void* m_stat, const void* s_stat,
                                           const void* db, const void* s_red, int n,
-                                          int n_valid, int K, int C, int nonlinear, int G,
-                                          void* part, void* df, void* grads, void* stream) {
-  size_t smem = 0;
-  int err = prepare(3, nonlinear, n, n_valid, K, C, &smem);
-  if (err != 0 || G < 1) return err != 0 ? err : (int)cudaErrorInvalidValue;
+                                          int n_valid, int K, int C, int nonlinear,
+                                          int need_df, void* scratch, void* df, void* grads,
+                                          void* stream) {
+  using namespace k3;
+  Bwd2Plan p;
+  int err = bwd2_plan(nonlinear, n, n_valid, K, C, need_df, &p);
+  if (err != 0) return err;
+  if (need_df && df == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Weights w = weights(w0, b0, w2, b2, qm);
-  const int tpc = tiles_per_block(n_valid, G);
   const float* f = static_cast<const float*>(feats);
-  const float* ms = static_cast<const float*>(m_stat);
-  const float* ss = static_cast<const float*>(s_stat);
-  const float* g = static_cast<const float*>(db);
-  const float* sr = static_cast<const float*>(s_red);
-  float* p = static_cast<float*>(part);
+  float* part1 = static_cast<float*>(scratch);
+  float* part2 = part1 + p.part1;
+  float* z = part2 + p.part2;
+  float* out = static_cast<float*>(grads);
   float* dff = static_cast<float*>(df);
-  if (n > n_valid) {
+  const float* g = static_cast<const float*>(db);
+  if (need_df && n > n_valid) {
     err = (int)cudaMemsetAsync(dff + (int64_t)n_valid * K, 0,
                                (size_t)(n - n_valid) * K * sizeof(float), st);
     if (err != 0) return err;
   }
+  const float* ms = static_cast<const float*>(m_stat);
+  const float* ss = static_cast<const float*>(s_stat);
+  const float* sr = static_cast<const float*>(s_red);
   if (nonlinear)
-    pool_bwd2_kernel<true><<<G, NT, smem, st>>>(f, w, ms, ss, g, sr, n_valid, K, C, tpc, p, dff);
+    pool_bwd2_rows_kernel<true><<<p.G, NT, p.smem1, st>>>(f, w, ms, ss, g, sr, n_valid, K, C,
+                                                           p.tpc, p.zld, need_df, part1, z);
   else
-    pool_bwd2_kernel<false><<<G, NT, smem, st>>>(f, w, ms, ss, g, sr, n_valid, K, C, tpc, p, dff);
+    pool_bwd2_rows_kernel<false><<<p.G, NT, p.smem1, st>>>(f, w, ms, ss, g, sr, n_valid, K, C,
+                                                            p.tpc, p.zld, need_df, part1, z);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const int64_t P = bwd2_partial_size(K, C);
-  reduce_partials<<<(unsigned)((P + 255) / 256), 256, 0, st>>>(p, G, P,
-                                                               static_cast<float*>(grads));
+  const int64_t P1 = rows_partial_size(C);
+  reduce_partials<<<(unsigned)((P1 + 255) / 256), 256, 0, st>>>(part1, p.G, P1,
+                                                                 out + (int64_t)D * K);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  pool_bwd2_dw0_kernel<<<dim3(p.slabs, p.S), NT, p.smem2, st>>>(z, p.zld, f, n_valid, K,
+                                                                 p.rps, part2);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  reduce_partials<<<(unsigned)(((int64_t)D * K + 255) / 256), 256, 0, st>>>(
+      part2, p.S, (int64_t)D * K, out);
+  err = (int)cudaGetLastError();
+  if (err != 0 || !need_df) return err;
+  const int64_t tiles3 = ((int64_t)n_valid + TR3 - 1) / TR3;
+  pool_bwd2_df_kernel<<<(unsigned)(tiles3 * p.slabs), NT, p.smem3, st>>>(
+      z, static_cast<const float*>(w0), g, n_valid, K, C, dff);
   return (int)cudaGetLastError();
 }

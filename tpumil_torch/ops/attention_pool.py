@@ -12,7 +12,8 @@ Three wrappers of the hand-written Hopper kernels in
     max and denominator kept as residuals for the backward;
   * ``attention_pool_bwd1`` (K2): ``s_red[c] = sum_n A[n,c] (f_n . dB_c)``;
   * ``attention_pool_bwd2`` (K3): ``(dF, dW0, db0, dW2, db2, dq_max)``,
-    recomputing every activation tile by tile from (m, s).
+    recomputing every activation tile by tile from (m, s); dF only when
+    asked for (``need_df``), else ``None``.
 
 Rows ``>= n_valid`` are padding: they get exactly zero attention and zero
 ``dF``. Bags in this package are unpadded (``n_valid = N``); the argument
@@ -81,10 +82,11 @@ def attention_pool_bwd1_plain(feats, w0, b0, w2, b2, q_max, m, s, db,
 
 
 def attention_pool_bwd2_plain(feats, w0, b0, w2, b2, q_max, m, s, db, s_red,
-                              n_valid: int, nonlinear: bool = True):
+                              n_valid: int, nonlinear: bool = True,
+                              need_df: bool = True):
     """K3's plain version: ``(dF, dW0, db0, dW2, db2, dq_max)``; the
     closed-form gradients of ``sum(B * dB)``. dW2 and db2 are zeros for the
-    linear q."""
+    linear q; dF is ``None`` unless ``need_df``."""
     z1, h, q, logits, valid = _recompute(feats, w0, b0, w2, b2, q_max,
                                          n_valid, nonlinear)
     a = _attention(logits, valid, m, s)
@@ -99,7 +101,7 @@ def attention_pool_bwd2_plain(feats, w0, b0, w2, b2, q_max, m, s, db, s_red,
         dw2 = torch.zeros((ATTN_DIM, ATTN_DIM), device=feats.device)
         db2 = torch.zeros((ATTN_DIM,), device=feats.device)
         dz1 = dq
-    df = a @ db + dz1 @ w0
+    df = a @ db + dz1 @ w0 if need_df else None
     return df, dz1.T @ feats, dz1.sum(dim=0), dw2, db2, dqm
 
 
@@ -138,8 +140,12 @@ def _check(feats, n_valid, nonlinear, w0, b0, w2, b2, q_max, *stats) -> None:
         if k % 4 != 0:
             raise ValueError(f"K={k}: the kernels read rows as 16-byte "
                              "vectors and need K % 4 == 0")
-        if feats.data_ptr() % 16 != 0:
-            raise ValueError("feats must start on a 16-byte boundary")
+        # feats, W0 and (backward) dB are copied to shared memory as
+        # 16-byte vectors
+        vectors = [feats, w0] + ([stats[2]] if len(stats) > 2 else [])
+        if any(t.data_ptr() % 16 for t in vectors):
+            raise ValueError("feats, w0 and dB must start on a 16-byte "
+                             "boundary")
     elif feats.device.type != "cpu":
         raise ValueError(f"unsupported device {feats.device}")
 
@@ -221,15 +227,18 @@ def attention_pool_bwd1(feats, w0, b0, w2, b2, q_max, m, s, db, n_valid: int,
 
 
 def attention_pool_bwd2(feats, w0, b0, w2, b2, q_max, m, s, db, s_red,
-                        n_valid: int, nonlinear: bool = True):
+                        n_valid: int, nonlinear: bool = True,
+                        need_df: bool = True):
     """K3: ``(dF [N, K], dW0 [D, K], db0 [D], dW2 [D, D], db2 [D],
-    dq_max [C, D])``. dF is written even when feats need no gradient, as the
-    TPU kernel does."""
+    dq_max [C, D])``. dF is computed only when ``need_df`` (else ``None``):
+    bag features are constants in training, and dF [N, K] would be the
+    largest buffer of the step."""
     _check(feats, n_valid, nonlinear, w0, b0, w2, b2, q_max, m, s, db,
            s_red)
     if feats.device.type == "cpu":
         return attention_pool_bwd2_plain(feats, w0, b0, w2, b2, q_max, m, s,
-                                         db, s_red, n_valid, nonlinear)
+                                         db, s_red, n_valid, nonlinear,
+                                         need_df)
     from tpumil_torch.utils.build import load_library
 
     lib = load_library()
@@ -237,17 +246,22 @@ def attention_pool_bwd2(feats, w0, b0, w2, b2, q_max, m, s, db, s_red,
     c = q_max.shape[0]
     d = ATTN_DIM
     with torch.cuda.device(feats.device):
-        g = _grid(lib, 3, nonlinear, n, int(n_valid), k, c)
+        scratch_n = lib.tpumil_attention_pool_bwd2_scratch(
+            int(nonlinear), n, int(n_valid), k, c, int(need_df))
+        if scratch_n <= 0:
+            raise RuntimeError(f"attention_pool kernel 3: no launch "
+                               f"configuration (CUDA error {-scratch_n}) for "
+                               f"N={n}, K={k}, C={c}")
+        scratch = torch.empty((scratch_n,), device=feats.device)
         size = int(lib.tpumil_attention_pool_bwd2_size(k, c))
-        part = torch.empty((g, size), device=feats.device)
         grads = torch.empty((size,), device=feats.device)
-        df = torch.empty((n, k), device=feats.device)
+        df = torch.empty((n, k), device=feats.device) if need_df else None
         stream = torch.cuda.current_stream(feats.device).cuda_stream
         err = lib.tpumil_attention_pool_bwd2(
             *_launch_args(feats, w0, b0, w2, b2, q_max), m.data_ptr(),
             s.data_ptr(), db.data_ptr(), s_red.data_ptr(), n, int(n_valid),
-            k, c, int(nonlinear), g, part.data_ptr(), df.data_ptr(),
-            grads.data_ptr(), stream)
+            k, c, int(nonlinear), int(need_df), scratch.data_ptr(),
+            None if df is None else df.data_ptr(), grads.data_ptr(), stream)
     _raise_on(err, "attention_pool_bwd2")
     attention_pool_bwd2.launches += 1
     dw0, db0, dw2, db2, dqm = torch.split(grads, [d * k, d, d * d, d, c * d])
@@ -265,8 +279,9 @@ class TrainablePool(torch.autograd.Function):
     """``B = pool(feats, w0, b0, w2, b2, q_max)`` with the streaming
     backward (K2 then K3) in place of autograd through Q and A: the saved
     residuals are the inputs and the softmax stats (m, s), and no [N, D]
-    activation is kept. K3 still writes dF [N, K], as the TPU kernel does.
-    For the linear q pass ``w2 = b2 = None``."""
+    activation is kept. K3 computes dF [N, K] only when feats need a
+    gradient (``ctx.needs_input_grad[0]``); otherwise their gradient is
+    ``None``. For the linear q pass ``w2 = b2 = None``."""
 
     @staticmethod
     def forward(ctx, feats, w0, b0, w2, b2, q_max, n_valid: int,
@@ -284,7 +299,7 @@ class TrainablePool(torch.autograd.Function):
         args = (feats, w0, b0, w2, b2, q_max, m, s, db)
         s_red = attention_pool_bwd1(*args, ctx.n_valid, ctx.nonlinear)
         df, dw0, db0, dw2, db2, dqm = attention_pool_bwd2(
-            *args, s_red, ctx.n_valid, ctx.nonlinear)
+            *args, s_red, ctx.n_valid, ctx.nonlinear, ctx.needs_input_grad[0])
         if not ctx.nonlinear:
             dw2 = db2 = None
         return df, dw0, db0, dw2, db2, dqm, None, None

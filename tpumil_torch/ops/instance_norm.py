@@ -9,16 +9,57 @@ are torch's InstanceNorm2d(affine=False, eps=1e-5): per (sample, channel)
 statistics in f32 over the stored values, biased variance, eps inside the
 rsqrt, output cast back to the input dtype.
 
+The kernel has two routes, and ``plan_instance_norm`` picks one from the
+shape and dtype alone: the one-read route holds the plane of one (sample,
+block of channels) on chip, spread over a thread-block cluster of up to 8
+CTAs, and reads each element of device memory once; planes too large for a
+cluster of 8 take the two-read route. Both are hand-written kernels.
+
 On a CPU tensor the wrapper runs ``instance_norm_plain``; on a CUDA tensor
-it launches the kernel or raises — it never falls back.
+it launches the planned route or raises — it never falls back to the other
+route or to the plain version.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Sequence
 
 import torch
 
 EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+# one-read route: a CTA holds at most SLICE_MAX bytes of its plane (one CTA
+# per SM, beside its reduction scratch), and the planner takes the smallest
+# cluster whose slices fit: on the H100, fewer and larger CTAs ran the
+# ResNet18 planes fastest (tools/in_sweep.py)
+SLICE_MAX = 200 * 1024
+CLUSTER_SIZES = (1, 2, 4, 8)
+ROW_BYTES = 256  # channels per block: whole 256-byte rows where C allows
+
+
+class INPlan(NamedTuple):
+    """The route of one ``fused_instance_norm`` launch: ``cluster`` CTAs
+    share the plane of one (sample, block of ``cblock`` channels), each
+    holding ceil(H W / cluster) spatial rows; ``cluster == 0`` is the
+    two-read route."""
+    route: str
+    cluster: int
+    cblock: int
+
+
+def plan_instance_norm(shape: Sequence[int], dtype: torch.dtype) -> INPlan:
+    """The route for an ``[N, H, W, C]`` tensor of ``dtype``: the one-read
+    route with the smallest cluster whose per-CTA slice fits ``SLICE_MAX``
+    bytes, else the two-read route. The batch size does not enter: a plane
+    is one sample's."""
+    _, h, w, c = shape
+    elt = _ELEMENT_BYTES[dtype]
+    cblock = min(c, ROW_BYTES // elt)
+    for cluster in CLUSTER_SIZES:
+        if -(-h * w // cluster) * cblock * elt <= SLICE_MAX:
+            return INPlan("one_read", cluster, cblock)
+    return INPlan("two_read", 0, c)
 
 
 def instance_norm_plain(x: torch.Tensor, relu: bool = False) -> torch.Tensor:
@@ -61,15 +102,16 @@ def fused_instance_norm(x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         return y
     from tpumil_torch.utils.build import load_library
 
+    plan = plan_instance_norm(x.shape, x.dtype)
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.tpumil_instance_norm(x.data_ptr(), y.data_ptr(), n, h * w, c,
                                        _DTYPE_CODES[x.dtype], int(relu), EPS,
-                                       stream)
+                                       plan.cluster, plan.cblock, stream)
     if err != 0:
-        raise RuntimeError(f"instance_norm kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"instance_norm kernel launch failed ({plan}): "
+                           f"CUDA error {err}")
     fused_instance_norm.launches += 1
     return y
 
