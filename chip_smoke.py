@@ -19,9 +19,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   6. serve     -- tpumil_torch.cli.serve on 127.0.0.1, concurrent clients on
                   /v1/embed, /v1/predict_patches, /v1/predict, /v1/heatmap
   7. pool      -- the attention-pool kernels K1, K2, K3 vs their plain
-                  versions at K=512, C=2, N up to 262144; CUDA-event times,
-                  K3 with dF written and skipped, beside the times of its
-                  earlier FFMA design
+                  versions at K=512, C=2, N up to 262144 (K1's logits too);
+                  bitwise reruns; CUDA-event times, K3 with dF written and
+                  skipped, beside the times of their earlier FFMA designs
   8. train     -- BagTrainer at full width on seeded synthetic bags up to
                   65529 instances: the kernel route against the eager route
                   from the same init and seed; ms per bag step; each route's
@@ -73,12 +73,15 @@ POOL_N = [(1000, 1000, True), (1000, 997, False), (65529, 65529, True),
 # order (per-block partials merged in block order); the backward's products
 # of three sums get the looser bar
 POOL_RTOL = {"B": 1e-4, "m": 1e-5, "s": 1e-4, "s_red": 1e-4, "grad": 1e-3}
-# K3 runs its products in 3xTF32: at N = 65529 it is also held to 1e-5 of
-# max|plain|, which one TF32 pass misses by two orders of magnitude
+# K1 and K3 run their q-MLP products in 3xTF32: at N = 65529 K1's B, m, s,
+# K2's s_red and K3's gradients are also held to 1e-5 of max|plain|, which
+# one TF32 pass misses by two orders of magnitude
 K3_RTOL_F32 = 1e-5
-# K3's times in its earlier FFMA design (dF always written; PERF.md), ms by
-# N, on an NVIDIA H100 80GB HBM3 at 700 W
+# times of the earlier FFMA designs (PERF.md; K3 with dF always written),
+# ms by N, on an NVIDIA H100 80GB HBM3 at 700 W
 K3_FFMA_MS = {1000: 0.216, 65529: 4.600, 262144: 18.052}
+K1_FFMA_MS = {1000: 0.072, 65529: 0.731, 262144: 2.801}
+K2_FFMA_MS = {1000: 0.078, 65529: 0.833, 262144: 3.334}
 TRAIN_N = [1500, 4000, 9000, 20000, 40000, 65529]
 TRAIN_EPOCHS = 3
 # the compute_feats tree: classes x bags per class x patches of 224^2
@@ -588,24 +591,26 @@ def pool_inputs(n: int, nonlinear: bool, seed: int):
 
 def pool_flops(n: int, d: int, nonlinear: bool) -> dict:
     """Operations of K1, K2, K3 on one bag of n x K instances (K3 with and
-    without dF)."""
-    fwd = 2 * n * K * d + (2 * n * d * d if nonlinear else 0) \
+    without dF); "mlp" is K1's share on the tensor cores."""
+    mlp = 2 * n * K * d + (2 * n * d * d if nonlinear else 0) \
         + 2 * n * C * d                      # q-MLP, logits against q_max
     # + dA's f . dB, dlogits -> dq and dq_max, the MLP's backward (dW0;
     # dW2 and dh through W2)
-    bwd2 = fwd + 2 * n * C * K + 4 * n * C * d + 2 * n * K * d \
+    bwd2 = mlp + 2 * n * C * K + 4 * n * C * d + 2 * n * K * d \
         + (4 * n * d * d if nonlinear else 0)
     return {
-        "fwd": fwd + 2 * n * C * K,          # + B = A^T f
-        "bwd1": fwd + 2 * n * C * K,         # + f . dB
+        "mlp": mlp,
+        "fwd": mlp + 2 * n * C * K,          # + B = A^T f
+        "bwd1": 2 * n * C * K,               # f . dB, from K1's logits
         "bwd2": bwd2 + 2 * n * C * K + 2 * n * K * d,  # + dF = A dB + dz1 W0
         "bwd2_nodf": bwd2}
 
 
 def phase_pool(gpu: str) -> dict:
     """K1, K2, K3 against their plain versions; times and bounds at each
-    N. K3 with dF written and skipped; its bound counts its 3xTF32
-    products (three TF32 products per f32 product) on the tensor cores."""
+    N. K3 with dF written and skipped. The bounds of K1 and K3 count their
+    q-MLP products as 3xTF32 (three TF32 products per f32 product) on the
+    tensor cores; K2 is one read of the bag."""
     from tpumil_torch.ops import attention_pool as ap
 
     worst = {"fwd": 0.0, "bwd1": 0.0, "bwd2": 0.0}
@@ -614,19 +619,35 @@ def phase_pool(gpu: str) -> dict:
     for i, (n, n_valid, nonlinear) in enumerate(POOL_N):
         feats, w, qm, db = pool_inputs(n, nonlinear, i)
         args = (feats, *w, qm)
-        out, m, s = ap.attention_pool_fwd(*args, n_valid, nonlinear)
+        out, m, s, lg = ap.attention_pool_fwd(*args, n_valid, nonlinear)
         torch.cuda.synchronize()
         want = ap.attention_pool_plain(*args, n_valid, nonlinear)
-        # K1's reported error is its output B's; the residuals m and s are
-        # held to their bars too
-        e1, _, _ = [pool_err(f"K1 {nm} N={n}", g, x, POOL_RTOL[nm])
+
+        def rtol(name):
+            return min(POOL_RTOL[name], K3_RTOL_F32) if n == 65529 \
+                else POOL_RTOL[name]
+
+        # K1's reported error is its output B's; the residuals m, s and the
+        # logits (valid rows; the padded ones exactly -1e30) are held to
+        # their bars too
+        e1, _, _ = [pool_err(f"K1 {nm} N={n}", g, x, rtol(nm))
                     for nm, g, x in zip(("B", "m", "s"), (out, m, s), want)]
-        _, wm, ws = want
-        red = ap.attention_pool_bwd1(*args, wm, ws, db, n_valid, nonlinear)
+        _, wm, ws, wl = want
+        pool_err(f"K1 logits N={n}", lg[:n_valid], wl[:n_valid],
+                 POOL_RTOL["m"])
+        if not torch.equal(lg[n_valid:], wl[n_valid:]):
+            raise AssertionError(f"K1 N={n}: padded rows' logits not -1e30")
+        red = ap.attention_pool_bwd1(feats, wl, wm, ws, db, n_valid)
         torch.cuda.synchronize()
-        want_red = ap.attention_pool_bwd1_plain(*args, wm, ws, db, n_valid,
-                                                nonlinear)
-        e2 = pool_err(f"K2 s_red N={n}", red, want_red, POOL_RTOL["s_red"])
+        want_red = ap.attention_pool_bwd1_plain(feats, wl, wm, ws, db,
+                                                n_valid)
+        e2 = pool_err(f"K2 s_red N={n}", red, want_red, rtol("s_red"))
+        again = ap.attention_pool_fwd(*args, n_valid, nonlinear)
+        if not all(torch.equal(a, b) for a, b in zip((out, m, s, lg), again)) \
+                or not torch.equal(red, ap.attention_pool_bwd1(
+                    feats, wl, wm, ws, db, n_valid)):
+            raise AssertionError(f"K1/K2 N={n}: a rerun is not bitwise equal")
+        del again
         bargs = (*args, wm, ws, db, want_red, n_valid, nonlinear)
         grads = ap.attention_pool_bwd2(*bargs)
         torch.cuda.synchronize()
@@ -660,9 +681,9 @@ def phase_pool(gpu: str) -> dict:
             "fwd_plain": cuda_ms(lambda: ap.attention_pool_plain(
                 *args, n_valid, nonlinear), iters),
             "bwd1": cuda_ms(lambda: ap.attention_pool_bwd1(
-                *args, wm, ws, db, n_valid, nonlinear), iters),
+                feats, wl, wm, ws, db, n_valid), iters),
             "bwd1_plain": cuda_ms(lambda: ap.attention_pool_bwd1_plain(
-                *args, wm, ws, db, n_valid, nonlinear), iters),
+                feats, wl, wm, ws, db, n_valid), iters),
             "bwd2": cuda_ms(lambda: ap.attention_pool_bwd2(*bargs), iters),
             "bwd2_plain": cuda_ms(lambda: ap.attention_pool_bwd2_plain(
                 *bargs), iters),
@@ -674,15 +695,18 @@ def phase_pool(gpu: str) -> dict:
         for key, err in (("fwd", e1), ("bwd1", e2), ("bwd2", e3)):
             worst[key] = max(worst[key], err)
         flops = pool_flops(n_valid, ap.ATTN_DIM, nonlinear)
-        io = {"fwd": nbytes(*args, out, m, s),
-              "bwd1": nbytes(*args, wm, ws, db, red),
+        io = {"fwd": nbytes(*args, out, m, s, lg),
+              "bwd1": nbytes(feats, wl, wm, ws, db, red),
               "bwd2": nbytes(*bargs[:-2], *grads),
               "bwd2_nodf": nbytes(*bargs[:-2], *grads[1:])}
-        bd = {key: bound(io[key], flops[key]) for key in ("fwd", "bwd1")}
+        bd = {"bwd1": bound(io["bwd1"], flops["bwd1"])}
         ffma = {}
-        for key in ("bwd2", "bwd2_nodf"):
+        for key in ("fwd", "bwd2", "bwd2_nodf"):
             ffma[key] = bound(io[key], flops[key])[0]
-            t_ops = 3 * flops[key] / TF32_FLOPS
+            # K1: the q-MLP and logits as 3xTF32, its pooling in f32 FFMA
+            t_ops = 3 * flops[key] / TF32_FLOPS if key != "fwd" else \
+                3 * flops["mlp"] / TF32_FLOPS \
+                + (flops["fwd"] - flops["mlp"]) / PEAK_FLOPS[torch.float32]
             t_bytes = io[key] / HBM_BYTES_PER_S
             bd[key] = (max(t_ops, t_bytes) * 1e3,
                        "operations" if t_ops >= t_bytes else "bytes")
@@ -693,22 +717,25 @@ def phase_pool(gpu: str) -> dict:
             f"{io[key]} B)" for name, key in (("K1", "fwd"), ("K2", "bwd1"),
                                                 ("K3", "bwd2"),
                                                 ("K3 without dF", "bwd2_nodf")))
-            + f"; K3 at f32 FFMA rates {ffma['bwd2']:.4f} (without dF "
-            f"{ffma['bwd2_nodf']:.4f})")
+            + f"; at f32 FFMA rates K1 {ffma['fwd']:.4f}, K3 "
+            f"{ffma['bwd2']:.4f} (without dF {ffma['bwd2_nodf']:.4f})")
+        f32 = f"; {K3_RTOL_F32} at N=65529" if n == 65529 else ""
         log(f"[pool] N={n} n_valid={n_valid} K={K} C={C} nonlinear="
             f"{int(nonlinear)}: max_abs_err K1 {e1:.3e} (rtol {POOL_RTOL['B']} "
-            f"of max|plain|), K2 {e2:.3e} (rtol {POOL_RTOL['s_red']}), K3 "
-            f"{e3:.3e} (rtol {POOL_RTOL['grad']}; {rel3:.2e} of max|plain|"
-            f"{f', bar {K3_RTOL_F32}' if n == 65529 else ''}), K3 without dF "
-            f"bitwise equal, rerun bitwise equal; ms kernel/plain: K1 "
+            f"of max|plain|{f32}), K2 {e2:.3e} (rtol {POOL_RTOL['s_red']}"
+            f"{f32}), K3 {e3:.3e} (rtol {POOL_RTOL['grad']}; {rel3:.2e} of "
+            f"max|plain|{f', bar {K3_RTOL_F32}' if n == 65529 else ''}), "
+            f"K1 logits within rtol {POOL_RTOL['m']}, K3 without dF bitwise "
+            f"equal, K1-K3 reruns bitwise equal; ms kernel/plain: K1 "
             f"{ms['fwd']:.3f}/{ms['fwd_plain']:.3f}, K2 {ms['bwd1']:.3f}/"
             f"{ms['bwd1_plain']:.3f}, K3 {ms['bwd2']:.3f}/"
             f"{ms['bwd2_plain']:.3f}, K3 without dF {ms['bwd2_nodf']:.3f}/"
             f"{ms['bwd2_nodf_plain']:.3f}"
-            + (f" (the earlier FFMA K3, dF always written: "
+            + (f" (the earlier FFMA designs: K1 {K1_FFMA_MS[n]:.3f}, K2 "
+               f"{K2_FFMA_MS[n]:.3f}, K3 with dF always written "
                f"{K3_FFMA_MS[n]:.3f})" if nonlinear and n in K3_FFMA_MS
                else "") + f"; {gpu}")
-        del feats, w, qm, db, out, red, grads, want
+        del feats, w, qm, db, out, lg, red, grads, want
         torch.cuda.empty_cache()
     return {"err": worst, "ms": times[65529], "bound": bounds[65529]}
 

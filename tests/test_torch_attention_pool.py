@@ -50,31 +50,41 @@ CASES = [(True, 256, 256), (True, 384, 300), (False, 256, 256),
 
 @pytest.mark.parametrize("nonlinear,n,n_valid", CASES)
 def test_forward_matches_pallas(nonlinear, n, n_valid):
-    """K1's plain version: B and the softmax stats (m, s)."""
+    """K1's plain version: B, the softmax stats (m, s), and the logits it
+    keeps for K2 against q(feats) q_max^T / sqrt(D) from the JAX model's
+    query stream (apply_q), masked past n_valid."""
     feats, w, q_max, _ = _inputs(n, n_valid, nonlinear)
     qp = w if nonlinear else {"w": w["w0"], "b": w["b0"]}
     want, wm, ws = jpool.fused_attention_pool(
         jnp.asarray(feats), jax.tree.map(jnp.asarray, qp), jnp.asarray(q_max),
         n_valid, tile_n=TILE, nonlinear=nonlinear, interpret=True,
         return_stats=True)
+    q = jdsmil.apply_q({"q": jax.tree.map(jnp.asarray, qp)},
+                       jnp.asarray(feats))
+    want_l = np.asarray(jnp.matmul(q, jnp.asarray(q_max).T,
+                                   precision=jax.lax.Precision.HIGHEST))
+    want_l = np.where(np.arange(n)[:, None] < n_valid, want_l / np.sqrt(D),
+                      np.float32(-1e30))
     before = ap.attention_pool_fwd.launches
-    got, m, s = ap.attention_pool_fwd(torch.from_numpy(feats),
-                                      *_torch_weights(w, nonlinear),
-                                      torch.from_numpy(q_max), n_valid,
-                                      nonlinear)
+    got, m, s, logits = ap.attention_pool_fwd(torch.from_numpy(feats),
+                                              *_torch_weights(w, nonlinear),
+                                              torch.from_numpy(q_max),
+                                              n_valid, nonlinear)
     assert ap.attention_pool_fwd.launches == before  # the CPU runs no kernel
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-6)
     np.testing.assert_allclose(m.numpy(), np.asarray(wm)[0], rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_allclose(s.numpy(), np.asarray(ws)[0], rtol=1e-4)
+    assert logits.shape == (n, C)
+    np.testing.assert_allclose(logits.numpy(), want_l, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("nonlinear,n,n_valid", CASES)
 def test_trainable_pool_matches_pallas_backward(nonlinear, n, n_valid):
-    """TrainablePool (forward K1, backward K2 then K3, their plain versions
-    here) against make_trainable_pool's custom VJP, under a random
-    cotangent."""
+    """TrainablePool (forward K1, backward K2 on K1's saved logits, then K3;
+    their plain versions here) against make_trainable_pool's custom VJP,
+    under a random cotangent."""
     feats, w, q_max, cot = _inputs(n, n_valid, nonlinear)
     pool = jpool.make_trainable_pool(tile_n=TILE, nonlinear=nonlinear,
                                      interpret=True)
@@ -163,8 +173,8 @@ def test_bwd2_without_df_keeps_the_other_gradients(nonlinear):
     feats, w, q_max, cot = _inputs(384, 300, nonlinear, seed=8)
     f, qm, db = map(torch.from_numpy, (feats, q_max, cot))
     ws = _torch_weights(w, nonlinear)
-    _, m, s = ap.attention_pool_fwd(f, *ws, qm, 300, nonlinear)
-    red = ap.attention_pool_bwd1(f, *ws, qm, m, s, db, 300, nonlinear)
+    _, m, s, logits = ap.attention_pool_fwd(f, *ws, qm, 300, nonlinear)
+    red = ap.attention_pool_bwd1(f, logits, m, s, db, 300)
     full = ap.attention_pool_bwd2(f, *ws, qm, m, s, db, red, 300, nonlinear)
     part = ap.attention_pool_bwd2(f, *ws, qm, m, s, db, red, 300, nonlinear,
                                   need_df=False)
@@ -246,6 +256,20 @@ def test_wrappers_validate_inputs():
         ap.attention_pool_fwd(f, ws[0][:, :32].contiguous(), *ws[1:], qm, 64)
     with pytest.raises(ValueError, match="w2 and b2"):
         ap.attention_pool_fwd(f, ws[0], ws[1], None, None, qm, 64, True)
-    m, s = torch.zeros(C), torch.ones(C)
+    m, s, lg = torch.zeros(C), torch.ones(C), torch.zeros(64, C)
+    db = torch.zeros(C, K)
+    ap.attention_pool_bwd1(f, lg, m, s, db, 64)  # well-formed
     with pytest.raises(ValueError, match="shape"):
-        ap.attention_pool_bwd1(f, *ws, qm, m, s, torch.zeros(C, K + 4), 64)
+        ap.attention_pool_bwd1(f, lg, m, s, torch.zeros(C, K + 4), 64)
+    with pytest.raises(ValueError, match="shape"):
+        ap.attention_pool_bwd1(f, torch.zeros(63, C), m, s, db, 64)
+    with pytest.raises(ValueError, match="shape"):
+        ap.attention_pool_bwd1(f, torch.zeros(64, C + 1), m, s, db, 64)
+    with pytest.raises(ValueError, match=r"\[N, C\]"):
+        ap.attention_pool_bwd1(f, torch.zeros(64 * C), m, s, db, 64)
+    with pytest.raises(ValueError, match="float32"):
+        ap.attention_pool_bwd1(f, lg.double(), m, s, db, 64)
+    with pytest.raises(ValueError, match="tensors on meta"):
+        ap.attention_pool_bwd1(f, lg.to("meta"), m, s, db, 64)
+    with pytest.raises(ValueError, match="n_valid"):
+        ap.attention_pool_bwd1(f, lg, m, s, db, 0)

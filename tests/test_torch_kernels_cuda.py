@@ -152,7 +152,7 @@ def _pool_inputs(device, n, n_valid, k, c, nonlinear, seed=0):
 
 def _close(name, got, want, rtol):
     """|got - want| <= rtol * max|want| + 1e-6: sums over N rows taken in
-    another order (blocks of 32 rows, then a fixed-order merge)."""
+    another order (per-CTA partials, then a fixed-order merge)."""
     if want is None:
         return
     err = (got - want).abs().max().item()
@@ -170,22 +170,25 @@ def _close(name, got, want, rtol):
                                            (5000, 4097, 128, 3)])
 def test_attention_pool_kernels_match_plain(card, nonlinear, n, n_valid, k, c):
     """K1, K2, K3 against their plain versions: ragged last tiles, padded
-    rows, one row, up to the 8-class bound."""
+    rows, one row, up to the 8-class bound. K1's logits too: within 1e-5
+    of max|plain| on the valid rows, -1e30 on the padded ones."""
     feats, w, qm, db = _pool_inputs(card, n, n_valid, k, c, nonlinear)
     counts = (ap.attention_pool_fwd.launches, ap.attention_pool_bwd1.launches,
               ap.attention_pool_bwd2.launches)
-    out, m, s = ap.attention_pool_fwd(feats, *w, qm, n_valid, nonlinear)
+    out, m, s, logits = ap.attention_pool_fwd(feats, *w, qm, n_valid,
+                                              nonlinear)
     torch.cuda.synchronize()
-    want_out, want_m, want_s = ap.attention_pool_plain(feats, *w, qm, n_valid,
-                                                       nonlinear)
+    want_out, want_m, want_s, want_l = ap.attention_pool_plain(
+        feats, *w, qm, n_valid, nonlinear)
     _close("B", out, want_out, 1e-4)
     _close("m", m, want_m, 1e-5)
     _close("s", s, want_s, 1e-4)
-    s_red = ap.attention_pool_bwd1(feats, *w, qm, want_m, want_s, db, n_valid,
-                                   nonlinear)
+    _close("logits", logits[:n_valid], want_l[:n_valid], 1e-5)
+    assert torch.equal(logits[n_valid:], want_l[n_valid:])
+    s_red = ap.attention_pool_bwd1(feats, want_l, want_m, want_s, db, n_valid)
     torch.cuda.synchronize()
-    want_red = ap.attention_pool_bwd1_plain(feats, *w, qm, want_m, want_s, db,
-                                            n_valid, nonlinear)
+    want_red = ap.attention_pool_bwd1_plain(feats, want_l, want_m, want_s, db,
+                                            n_valid)
     _close("s_red", s_red, want_red, 1e-4)
     got = ap.attention_pool_bwd2(feats, *w, qm, want_m, want_s, db, want_red,
                                  n_valid, nonlinear)
@@ -213,6 +216,28 @@ def _off_kink(device, n, k, c, nonlinear, seed, gap=1e-5):
     return feats[:n].contiguous(), w, qm, db
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("nonlinear", [True, False])
+def test_attention_pool_fwd_bwd1_f32_bar_at_65529(card, nonlinear):
+    """K1 (3xTF32 logits pass, f32 pool pass) and K2 at the training path's
+    giant bag on rows off the ReLU's kink: B, m, s and s_red within 1e-5
+    of max|plain|, as K3 is held."""
+    n = 65529
+    feats, w, qm, db = _off_kink(card, n, 512, 2, nonlinear, seed=9)
+    assert feats.shape == (n, 512)
+    out, m, s, logits = ap.attention_pool_fwd(feats, *w, qm, n, nonlinear)
+    want = ap.attention_pool_plain(feats, *w, qm, n, nonlinear)
+    for name, g, x in zip(("B", "m", "s", "logits"), (out, m, s, logits),
+                          want):
+        err = (g - x).abs().max().item()
+        assert err <= 1e-5 * x.abs().max().item(), (name, err)
+    red = ap.attention_pool_bwd1(feats, want[3], want[1], want[2], db, n)
+    want_red = ap.attention_pool_bwd1_plain(feats, want[3], want[1], want[2],
+                                            db, n)
+    err = (red - want_red).abs().max().item()
+    assert err <= 1e-5 * want_red.abs().max().item(), ("s_red", err)
+
+
 # K3's cases: (N, n_valid, K, C, nonlinear)
 BWD2_CASES = [(1000, 1000, 512, 2, True), (1000, 997, 512, 2, False),
               (65529, 65529, 512, 2, True), (5000, 4097, 1024, 3, True),
@@ -234,9 +259,9 @@ def test_attention_pool_bwd2_matches_plain(card, n, n_valid, k, c, nonlinear):
     else:
         feats, w, qm, db = _pool_inputs(card, n, n_valid, k, c, nonlinear,
                                         seed=5)
-    _, m, s = ap.attention_pool_plain(feats, *w, qm, n_valid, nonlinear)
-    red = ap.attention_pool_bwd1_plain(feats, *w, qm, m, s, db, n_valid,
-                                       nonlinear)
+    _, m, s, logits = ap.attention_pool_plain(feats, *w, qm, n_valid,
+                                              nonlinear)
+    red = ap.attention_pool_bwd1_plain(feats, logits, m, s, db, n_valid)
     args = (feats, *w, qm, m, s, db, red, n_valid, nonlinear)
     before = ap.attention_pool_bwd2.launches
     got = ap.attention_pool_bwd2(*args)
@@ -283,9 +308,9 @@ def test_attention_pool_kernels_are_deterministic(card):
     feats, w, qm, db = _pool_inputs(card, 20000, 19999, 512, 2, True, seed=1)
     runs = []
     for _ in range(2):
-        out, m, s = ap.attention_pool_fwd(feats, *w, qm, 19999)
-        red = ap.attention_pool_bwd1(feats, *w, qm, m, s, db, 19999)
-        runs.append((out, red) + ap.attention_pool_bwd2(
+        out, m, s, logits = ap.attention_pool_fwd(feats, *w, qm, 19999)
+        red = ap.attention_pool_bwd1(feats, logits, m, s, db, 19999)
+        runs.append((out, m, s, logits, red) + ap.attention_pool_bwd2(
             feats, *w, qm, m, s, db, red, 19999))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -301,7 +326,7 @@ def test_trainable_pool_gradients_match_autograd(card):
     (out * db).sum().backward()
     got = [x.grad for x in leaves]
     ref = [x.clone().requires_grad_(True) for x in [feats, *w, qm]]
-    want_out, _, _ = ap.attention_pool_plain(*ref, 2900, True)
+    want_out = ap.attention_pool_plain(*ref, 2900, True)[0]
     (want_out * db).sum().backward()
     _close("B", out.detach(), want_out.detach(), 1e-4)
     for g, x in zip(got, ref):
@@ -320,6 +345,14 @@ def test_attention_pool_rejects_bad_cuda_input(card):
     with pytest.raises(ValueError, match="K % 4"):
         ap.attention_pool_fwd(feats[:, :126].contiguous(),
                               w[0][:, :126].contiguous(), *w[1:], qm, 64)
+    lg, m, s = torch.zeros(64, 2, device=card), torch.zeros(2, device=card), \
+        torch.ones(2, device=card)
+    with pytest.raises(ValueError, match="K % 4"):
+        ap.attention_pool_bwd1(feats[:, :126].contiguous(), lg, m, s,
+                               torch.zeros(2, 126, device=card), 64)
+    with pytest.raises(ValueError, match="tensors on cpu"):
+        ap.attention_pool_bwd1(feats, lg.cpu(), m, s,
+                               torch.zeros(2, 128, device=card), 64)
 
 
 # -- the training path on the card ---------------------------------------------

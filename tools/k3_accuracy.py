@@ -52,8 +52,8 @@ def main() -> int:
     for n, seed in BAGS:
         for off_kink in (False, True):
             feats, w, qm, db = bag(n, seed, off_kink)
-            _, m, s = ap.attention_pool_plain(feats, *w, qm, n)
-            red = ap.attention_pool_bwd1_plain(feats, *w, qm, m, s, db, n)
+            _, m, s, logits = ap.attention_pool_plain(feats, *w, qm, n)
+            red = ap.attention_pool_bwd1_plain(feats, logits, m, s, db, n)
             args = (feats, *w, qm, m, s, db, red, n)
             got = ap.attention_pool_bwd2(*args)
             plain = ap.attention_pool_bwd2_plain(*args)

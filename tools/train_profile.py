@@ -31,10 +31,11 @@ from tools.serve_profile import (activities, busy_us, device_events, gpu_line,
 
 # kernel class -> substrings of the (lower-cased) kernel name, tried in order
 CLASSES = (
-    ("K1 fwd", ("pool_fwd_kernel", "pool_merge_kernel")),
-    ("K2 bwd1", ("pool_bwd1_kernel",)),
+    ("K1 fwd", ("pool_logits_kernel", "pool_attend_kernel",
+                "pool_merge_kernel")),
+    ("K2 bwd1", ("pool_bwd1_",)),
     ("K3 bwd2", ("pool_bwd2_",)),
-    ("K2/K3 partial sums", ("reduce_partials",)),
+    ("K3 partial sums", ("reduce_partials",)),
     ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "ampere_", "cublas")),
     ("adam", ("adam", "multi_tensor")),
     ("elementwise/reduce", ("elementwise", "reduce", "vectorized", "softmax",

@@ -2,8 +2,9 @@
 // Hopper (K1, K2, K3 of the port).
 //
 // Replaces the Pallas TPU kernels of tpumil/ops/dsmil_pallas.py:
-//   K1  fused_attention_pool (_kernel)   -> pool_fwd_kernel + pool_merge_kernel
-//   K2  _bwd1_kernel                     -> pool_bwd1_kernel + reduce_partials
+//   K1  fused_attention_pool (_kernel)   -> pool_logits_kernel,
+//                                           pool_attend_kernel + pool_merge_kernel
+//   K2  _bwd1_kernel                     -> pool_bwd1_kernel + pool_bwd1_fold_kernel
 //   K3  _bwd2_kernel                     -> pool_bwd2_rows_kernel,
 //                                           pool_bwd2_dw0_kernel,
 //                                           pool_bwd2_df_kernel + reduce_partials
@@ -12,46 +13,48 @@
 //   z1 = f W0^T + b0; h = relu(z1); q = tanh(h W2^T + b2)   (nonlinear q)
 //   q = z1                                                  (linear q)
 //   l = q q_max^T / sqrt(D), rows >= n_valid masked
-//   K1: B = softmax_N(l)^T f  [C, K], plus the softmax stats (m, s)
-//   K2: s_red[c] = sum_n A[n,c] (f_n . dB_c)
+//   K1: l [N, C], B = softmax_N(l)^T f [C, K] and the softmax stats (m, s)
+//   K2: s_red[c] = sum_n A[n,c] (f_n . dB_c), A = exp(l - m) / s from K1's l
 //   K3: dl = A (f dB^T - s_red); dF = A dB + dz1 W0, and dW0, db0, dW2, db2,
 //       dq_max, recomputing every activation from (m, s) tile by tile.
 //
-// What bounds them: arithmetic. Each row costs 2 K D + 2 D^2 FMAs of the
-// recompute (+ the backward's products) against 4 K bytes read, about 80
-// flop per byte at K = 512, above the card's balance point.
+// The TPU kernels recompute the q-MLP in every pass because their residuals
+// must stay O(tile) in VMEM. Here K1 keeps the logits (C floats per
+// instance), so K2 needs no q-MLP: it is one read of the bag.
 //
-// K1 and K2 (simple first): the TPU grid walks one bag serially over N. Here
-// the valid rows are split across G blocks (at most what fits on the card at
-// once); each block walks its rows in tiles of T = 32 rows staged in shared
-// memory (64 KB at K = 512). Weights stream through a padded shared-memory
-// chunk of 32 x 128 floats. The products run in true f32 on the CUDA cores
-// (FFMA). Each block writes partials (K1: its own m, s and acc [C, K]; K2:
-// its partial sums) and a second small kernel merges them in a fixed block
-// order, so a rerun is bitwise equal (no float atomics).
+// What bounds them:
+//  * K1's logits pass and K3: arithmetic. Each row costs 2 K D + 2 D^2 FMAs
+//    of the q-MLP (+ K3's backward products) against 4 K bytes read, about
+//    80 flop per byte at K = 512. At N = 65529, K = 512, C = 2 the q-MLP
+//    and logits are 10.9 GFLOP, K3 32.6 GFLOP (24 without dF): 0.066 and
+//    0.198 ms as 3xTF32 on the tensor cores (three TF32 products per f32
+//    product at 495 TFLOP/s), 0.163 and 0.486 ms in f32 FFMA (67 TFLOP/s).
+//  * K1's pool pass and K2: bytes. 2 N C K FMAs against 4 N K bytes: one
+//    read of f, 0.040 ms at N = 65529.
 //
-// K3 does 32.6 GFLOP at N = 65529, K = 512, C = 2 (z1, the q-MLP, dW2, dh,
-// dW0 and dF's dz1 W0, each 2 N K D or 2 N D^2, plus the small products with
-// dB and q_max; 24 GFLOP without dF). Its bound is 0.486 ms in f32 FFMA (67
-// TFLOP/s) and 0.198 ms as 3xTF32 on the tensor cores (3 x 32.6 GFLOP at
-// 495 TFLOP/s). The design:
-//  * every product runs on the tensor cores, mma.sync m16n8k8 with tf32
-//    operands, in the 3xTF32 split (x = hi + lo; hi hi + hi lo + lo hi):
-//    the counterpart of the TPU kernel's Precision.HIGHEST, f32-level error
-//    where one TF32 pass would lose three digits;
-//  * the rows pass takes tiles of 128 rows; the feats tile and [W0; dB]
-//    stream through a double-buffered cp.async ring in K chunks of 32, with
+// The design:
+//  * every product of the q-MLP runs on the tensor cores, mma.sync
+//    m16n8k8 with tf32 operands, in the 3xTF32 split (x = hi + lo; hi hi +
+//    hi lo + lo hi): the counterpart of the TPU kernel's Precision.HIGHEST,
+//    f32-level error where one TF32 pass would lose three digits;
+//  * K1's logits pass and K3's rows pass share their front half
+//    (rows_front): tiles of 128 rows; the feats tile and W0 (K3: [W0; dB],
 //    dB's C rows as extra output columns, so z1 and f . dB come from one
-//    pass over f; W2 stays resident in shared memory; dW2, db0, db2 and
-//    dq_max stay per CTA;
-//  * dW0 leaves the per-tile loop: the rows pass writes dz1 [N, 128] (and
-//    A [N, C] where dF is wanted), and dW0 = dz1^T f is a split-N product,
-//    each CTA holding a [128 x 128] slab in registers;
-//  * dF = dz1 W0 + A dB is a third product, launched only when dF is
-//    wanted;
-//  * every partial merges in a fixed order, with no float atomics, so a
-//    rerun is bitwise equal. Rows >= n_valid are never read: their attention
-//    weight is exactly 0, and K3 writes zeros for their dF rows.
+//    pass over f) stream through a double-buffered cp.async ring in K
+//    chunks of 32; W2 stays resident in shared memory; the logits are one
+//    more n-tile of 8 columns (the classes) against q_max;
+//  * K1's pool pass and K2 stream the bag once in f32 FFMA, with 16-byte
+//    loads along K: exp(l - m) of a chunk of rows is staged in shared
+//    memory once per CTA; K1 pools B's columns per thread in registers, K2
+//    gives each warp whole rows with dB in shared memory;
+//  * K3's dW0 leaves the per-tile loop: the rows pass writes dz1 [N, 128]
+//    (and A [N, C] where dF is wanted), and dW0 = dz1^T f is a split-N
+//    product, each CTA holding a [128 x 128] slab in registers; dF = dz1 W0
+//    + A dB is a third product, launched only when dF is wanted;
+//  * every cross-CTA result merges partials in a fixed order, with no float
+//    atomics, so a rerun is bitwise equal. Rows >= n_valid are never read:
+//    their attention weight is exactly 0, their logits are written as NEG,
+//    and K3 writes zeros for their dF rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,11 +62,7 @@
 namespace {
 
 constexpr int D = 128;                // ATTN_DIM
-constexpr int T = 32;                 // rows per tile
 constexpr int NT = 256;               // threads per block
-constexpr int RPT = T * D / NT;       // rows per thread in a tile product (16)
-constexpr int IC = 32;                // depth of one staged weight chunk
-constexpr int LDM = D + 1;            // padded row of the staged chunk
 constexpr int CMAX = 8;               // compile-time bound on classes
 constexpr float NEG = -1e30f;
 
@@ -75,196 +74,6 @@ struct Weights {
   const float* qm;  // [C, D]
 };
 
-// Stage M(i, j), i in [i0, i0 + IC), j in [j0, j0 + D), into sM[il * LDM + jl]
-// with M(i, j) = trans ? W[j * I + i] : W[i * J + j]; out of range -> 0.
-// Loads are coalesced along the contiguous index of W.
-__device__ __forceinline__ void stage_chunk(float* sM, const float* __restrict__ W,
-                                            bool trans, int I, int J, int i0, int j0) {
-  for (int e = threadIdx.x; e < IC * D; e += NT) {
-    int il, jl;
-    if (trans) { il = e % IC; jl = e / IC; } else { il = e / D; jl = e % D; }
-    const int i = i0 + il, j = j0 + jl;
-    float v = 0.f;
-    if (i < I && j < J) v = trans ? W[(int64_t)j * I + i] : W[(int64_t)i * J + j];
-    sM[il * LDM + jl] = v;
-  }
-}
-
-// acc[r] = sum_{i < I} sIn[(r0 + r) * ld + i] * M(i, j0 + col) for r < RPT,
-// col = tid % D, r0 = (tid / D) * RPT. I % 4 == 0, ld % 4 == 0, sIn 16-byte
-// aligned. Every thread of the block must call it (it synchronizes).
-__device__ __forceinline__ void tile_product(float acc[RPT], const float* sIn, int ld,
-                                             const float* __restrict__ W, bool trans,
-                                             int I, int J, int j0, float* sM) {
-  const int col = threadIdx.x % D, r0 = (threadIdx.x / D) * RPT;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
-  for (int i0 = 0; i0 < I; i0 += IC) {
-    __syncthreads();  // the previous chunk is consumed
-    stage_chunk(sM, W, trans, I, J, i0, j0);
-    __syncthreads();
-    const int n = min(IC, I - i0);
-    for (int kk = 0; kk < n; kk += 4) {
-      const float w0 = sM[kk * LDM + col], w1 = sM[(kk + 1) * LDM + col];
-      const float w2 = sM[(kk + 2) * LDM + col], w3 = sM[(kk + 3) * LDM + col];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float4 x = *reinterpret_cast<const float4*>(sIn + (r0 + r) * ld + i0 + kk);
-        float a = acc[r];
-        a = fmaf(x.x, w0, a);
-        a = fmaf(x.y, w1, a);
-        a = fmaf(x.z, w2, a);
-        a = fmaf(x.w, w3, a);
-        acc[r] = a;
-      }
-    }
-  }
-}
-
-// Stage rows [row0, row0 + rows) of feats into sF [T, K]; rows past `rows`
-// are zero.
-__device__ __forceinline__ void load_tile(float* sF, const float* __restrict__ feats,
-                                          int64_t row0, int rows, int K) {
-  const int kv = K / 4;
-  for (int e = threadIdx.x; e < T * kv; e += NT) {
-    const int r = e / kv, k4 = e % kv;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) v = *reinterpret_cast<const float4*>(feats + (row0 + r) * K + 4 * k4);
-    *reinterpret_cast<float4*>(sF + r * K + 4 * k4) = v;
-  }
-}
-
-// The shared recompute of one tile (the TPU kernel's _recompute_tile):
-// nonlinear -> sH = relu(z1), sQ = tanh(sH W2^T + b2); linear -> sQ = z1.
-// sH may alias sQ. Logits land in sL[r * CMAX + c], rows >= rows at NEG.
-template <bool NL>
-__device__ __forceinline__ void recompute(const float* sF, int K, const Weights& w, int C,
-                                          int rows, const float* sQm, float* sH,
-                                          float* sQ, float* sL, float* sM) {
-  const int col = threadIdx.x % D, r0 = (threadIdx.x / D) * RPT;
-  float acc[RPT];
-  tile_product(acc, sF, K, w.w0, true, K, D, 0, sM);
-  const float b0 = w.b0[col];
-  if (NL) {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) sH[(r0 + r) * D + col] = fmaxf(acc[r] + b0, 0.f);
-    tile_product(acc, sH, D, w.w2, true, D, D, 0, sM);  // syncs before reading sH
-    const float b2 = w.b2[col];
-    __syncthreads();  // sQ may alias sH
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) sQ[(r0 + r) * D + col] = tanhf(acc[r] + b2);
-  } else {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) sQ[(r0 + r) * D + col] = acc[r] + b0;
-  }
-  __syncthreads();
-  const float scale = 1.f / sqrtf((float)D);
-  for (int e = threadIdx.x; e < T * C; e += NT) {
-    const int r = e / C, c = e % C;
-    float v = NEG;
-    if (r < rows) {
-      float d = 0.f;
-      for (int k = 0; k < D; ++k) d = fmaf(sQ[r * D + k], sQm[c * D + k], d);
-      v = d * scale;
-    }
-    sL[r * CMAX + c] = v;
-  }
-  __syncthreads();
-}
-
-struct Range {
-  int t_begin, t_end;
-};
-
-__device__ __forceinline__ Range block_tiles(int n_valid, int tpc) {
-  const int tiles = (n_valid + T - 1) / T;
-  Range rg;
-  rg.t_begin = min(blockIdx.x * tpc, tiles);
-  rg.t_end = min(rg.t_begin + tpc, tiles);
-  return rg;
-}
-
-// ---------------------------------------------------------------- K1 ---
-// Shared memory: sF [T*K] | sM [IC*LDM] | sH [T*D] | sQm [C*D] | sL [T*CMAX]
-//                | sAcc [C*K] | sStat [3*CMAX]
-template <bool NL>
-__global__ void __launch_bounds__(NT) pool_fwd_kernel(const float* __restrict__ feats,
-                                                      Weights w, int n_valid, int K, int C,
-                                                      int tpc, float* __restrict__ part) {
-  extern __shared__ float4 smem4[];
-  float* sF = reinterpret_cast<float*>(smem4);
-  float* sM = sF + T * K;
-  float* sH = sM + IC * LDM;
-  float* sQm = sH + T * D;
-  float* sL = sQm + C * D;
-  float* sAcc = sL + T * CMAX;
-  float* sStat = sAcc + C * K;  // m | s | corr
-  const int tid = threadIdx.x;
-  for (int e = tid; e < C * D; e += NT) sQm[e] = w.qm[e];
-  for (int e = tid; e < C * K; e += NT) sAcc[e] = 0.f;
-  if (tid < C) { sStat[tid] = NEG; sStat[CMAX + tid] = 0.f; }
-  const Range rg = block_tiles(n_valid, tpc);
-  for (int t = rg.t_begin; t < rg.t_end; ++t) {
-    const int64_t row0 = (int64_t)t * T;
-    const int rows = min(T, (int)(n_valid - row0));
-    __syncthreads();
-    load_tile(sF, feats, row0, rows, K);
-    recompute<NL>(sF, K, w, C, rows, sQm, sH, sH, sL, sM);
-    // online softmax: new max, rescale factor, p = exp(l - m) in place
-    if (tid < C) {
-      const int c = tid;
-      const float m_old = sStat[c];
-      float mx = m_old;
-      for (int r = 0; r < T; ++r) mx = fmaxf(mx, sL[r * CMAX + c]);
-      const float corr = expf(m_old - mx);
-      float ssum = 0.f;
-      for (int r = 0; r < T; ++r) {
-        const float p = expf(sL[r * CMAX + c] - mx);
-        sL[r * CMAX + c] = p;
-        ssum += p;
-      }
-      sStat[c] = mx;
-      sStat[CMAX + c] = sStat[CMAX + c] * corr + ssum;
-      sStat[2 * CMAX + c] = corr;
-    }
-    __syncthreads();
-    for (int k = tid; k < K; k += NT) {
-      for (int c = 0; c < C; ++c) {
-        float a = sAcc[c * K + k] * sStat[2 * CMAX + c];
-        for (int r = 0; r < T; ++r) a = fmaf(sL[r * CMAX + c], sF[r * K + k], a);
-        sAcc[c * K + k] = a;
-      }
-    }
-  }
-  __syncthreads();
-  // partial layout per block: m [C] | s [C] | acc [C*K]
-  float* out = part + (int64_t)blockIdx.x * C * (K + 2);
-  if (tid < C) { out[tid] = sStat[tid]; out[C + tid] = sStat[CMAX + tid]; }
-  for (int e = tid; e < C * K; e += NT) out[2 * C + e] = sAcc[e];
-}
-
-// Merge the G partials in block order: m = max m_g, s = sum s_g e^{m_g - m},
-// B = sum acc_g e^{m_g - m} / s.
-__global__ void pool_merge_kernel(const float* __restrict__ part, int G, int K, int C,
-                                  float* __restrict__ out_b, float* __restrict__ out_m,
-                                  float* __restrict__ out_s) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= C * K) return;
-  const int c = idx / K, k = idx % K;
-  const int64_t stride = (int64_t)C * (K + 2);
-  float m = NEG;
-  for (int g = 0; g < G; ++g) m = fmaxf(m, part[g * stride + c]);
-  float s = 0.f, acc = 0.f;
-  for (int g = 0; g < G; ++g) {
-    const float* pg = part + g * stride;
-    const float wgt = expf(pg[c] - m);
-    s = fmaf(pg[C + c], wgt, s);
-    acc = fmaf(pg[2 * C + c * K + k], wgt, acc);
-  }
-  out_b[idx] = acc / fmaxf(s, 1e-30f);
-  if (k == 0) { out_m[c] = m; out_s[c] = s; }
-}
-
 // out[j] = sum_g part[g * M + j], in block order.
 __global__ void reduce_partials(const float* __restrict__ part, int G, int64_t M,
                                 float* __restrict__ out) {
@@ -275,64 +84,17 @@ __global__ void reduce_partials(const float* __restrict__ part, int G, int64_t M
   out[j] = a;
 }
 
-// Attention weights A = exp(l - m) / max(s, 1e-30) of the tile, written over
-// sL; rows >= rows get 0.
+// Attention weight A = exp(l - m) / max(s, 1e-30).
 __device__ __forceinline__ float attn_weight(float l, float m, float s) {
   return expf(l - m) / fmaxf(s, 1e-30f);
 }
 
-// ---------------------------------------------------------------- K2 ---
-// Shared memory: sF [T*K] | sM [IC*LDM] | sH [T*D] | sQm [C*D] | sL [T*CMAX]
-//                | sDB [C*K] | sR [CMAX*NT]
-template <bool NL>
-__global__ void __launch_bounds__(NT) pool_bwd1_kernel(
-    const float* __restrict__ feats, Weights w, const float* __restrict__ m_stat,
-    const float* __restrict__ s_stat, const float* __restrict__ db, int n_valid, int K,
-    int C, int tpc, float* __restrict__ part) {
-  extern __shared__ float4 smem4[];
-  float* sF = reinterpret_cast<float*>(smem4);
-  float* sM = sF + T * K;
-  float* sH = sM + IC * LDM;
-  float* sQm = sH + T * D;
-  float* sL = sQm + C * D;
-  float* sDB = sL + T * CMAX;
-  float* sR = sDB + C * K;
-  const int tid = threadIdx.x;
-  for (int e = tid; e < C * D; e += NT) sQm[e] = w.qm[e];
-  for (int e = tid; e < C * K; e += NT) sDB[e] = db[e];
-  float red[CMAX];
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c) red[c] = 0.f;
-  const Range rg = block_tiles(n_valid, tpc);
-  for (int t = rg.t_begin; t < rg.t_end; ++t) {
-    const int64_t row0 = (int64_t)t * T;
-    const int rows = min(T, (int)(n_valid - row0));
-    __syncthreads();
-    load_tile(sF, feats, row0, rows, K);
-    recompute<NL>(sF, K, w, C, rows, sQm, sH, sH, sL, sM);
-    for (int e = tid; e < T * C; e += NT) {
-      const int r = e / C, c = e % C;
-      if (r >= rows) continue;
-      const float a = attn_weight(sL[r * CMAX + c], m_stat[c], s_stat[c]);
-      float da = 0.f;
-      for (int k = 0; k < K; ++k) da = fmaf(sF[r * K + k], sDB[c * K + k], da);
-#pragma unroll
-      for (int cc = 0; cc < CMAX; ++cc)
-        if (cc == c) red[cc] = fmaf(a, da, red[cc]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c) sR[c * NT + tid] = red[c];
-  __syncthreads();
-  if (tid < C) {
-    float a = 0.f;
-    for (int i = 0; i < NT; ++i) a += sR[tid * NT + i];
-    part[(int64_t)blockIdx.x * C + tid] = a;
-  }
-}
-
-// ---------------------------------------------------------------- K3 ---
-// Three passes, all on the tensor cores in 3xTF32 (see the note at the top):
+// ------------------------------------------------- the rows passes (K1, K3) ---
+// K1's logits pass (pool_logits_kernel) and K3's rows pass
+// (pool_bwd2_rows_kernel) share their front half, rows_front.
+//
+// K3, three passes, all on the tensor cores in 3xTF32 (see the note at the
+// top):
 //   rows  (pool_bwd2_rows_kernel, G CTAs, tiles of TR rows): recompute z1,
 //         h, q, A; dl, dz2, dz1; dz1 (and A where dF is wanted) to the
 //         scratch Z [rows, zld]; per-CTA partials of db0, dW2, db2, dq_max.
@@ -343,7 +105,7 @@ __global__ void __launch_bounds__(NT) pool_bwd1_kernel(
 // Partials are summed by reduce_partials in a fixed order (no atomics).
 
 namespace k3 {
-constexpr int TR = 128;              // rows per tile of the rows pass
+constexpr int TR = 128;              // rows per tile of the rows passes
 constexpr int KC = 32;               // depth of one streamed K chunk
 constexpr int LDK = KC + 4;          // row of a staged chunk (ld / 4 odd)
 constexpr int NB = D + CMAX;         // z1's D columns + dB's C (padded)
@@ -363,10 +125,42 @@ __host__ __device__ __forceinline__ int64_t rows_partial_size(int C) {
   return (int64_t)D + D * D + D + (int64_t)C * D;
 }
 
+// Shared memory of the rows passes (floats):
+//   ring [RING] (aliased by sG [TR][LDA]: q, then K3's dz2 / dz1)
+//   | sH [TR][LDA] | sW2 [D][LDA] (nonlinear only)
+//   | sQm [CMAX][LDA] | sDa [TR][CMAX] | sL [TR][CMAX] (logits; K3's dl)
 __host__ __device__ __forceinline__ size_t rows_smem_floats(bool nl) {
-  return (size_t)RING + (nl ? 2 * (size_t)ACT : 0) + 3 * (size_t)CMAX * TR;
+  return (size_t)RING + (nl ? 2 * (size_t)ACT : 0) + (size_t)CMAX * LDA + 2 * (size_t)CMAX * TR;
 }
 }  // namespace k3
+
+struct RowsSmem {
+  float *ring, *sH, *sW2, *sQm, *sDa, *sL;
+};
+
+template <bool NL>
+__device__ __forceinline__ RowsSmem rows_smem(float* base) {
+  using namespace k3;
+  RowsSmem s;
+  s.ring = base;
+  s.sH = base + RING;
+  s.sW2 = s.sH + ACT;
+  s.sQm = NL ? s.sW2 + ACT : s.sH;
+  s.sDa = s.sQm + CMAX * LDA;
+  s.sL = s.sDa + TR * CMAX;
+  return s;
+}
+
+// The resident weights of the rows passes: W2 -> sW2 [D][LDA] (nonlinear)
+// and q_max -> sQm [CMAX][LDA], classes >= C zero.
+template <bool NL>
+__device__ __forceinline__ void load_resident(const Weights& w, int C, const RowsSmem& sm) {
+  using namespace k3;
+  for (int e = threadIdx.x; e < CMAX * D; e += NT)
+    sm.sQm[(e / D) * LDA + e % D] = e < C * D ? w.qm[e] : 0.f;
+  if constexpr (NL)
+    for (int e = threadIdx.x; e < D * D; e += NT) sm.sW2[(e / D) * LDA + e % D] = w.w2[e];
+}
 
 // 3xTF32 on mma.sync: x = hi + lo with hi = tf32(x), lo = tf32(x - hi);
 // a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi, f32-level error (the dropped
@@ -443,7 +237,9 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // Stage K chunk [k0, k0 + KC) of the tile's feats rows into sF [TR][LDK]
-// (rows >= rows and columns >= K zero) and of [W0; dB; 0] into sB [NB][LDK].
+// (rows >= rows and columns >= K zero) and of the NCOL weight rows into
+// sB [NCOL][LDK]: W0 (NCOL = D), or [W0; dB; 0] (NCOL = NB).
+template <int NCOL>
 __device__ __forceinline__ void stage_rows_chunk(float* sF, float* sB,
                                                  const float* __restrict__ feats,
                                                  const float* __restrict__ w0,
@@ -455,7 +251,7 @@ __device__ __forceinline__ void stage_rows_chunk(float* sF, float* sB,
     const bool ok = r < rows && k < K;
     cp16(sF + r * k3::LDK + (k - k0), ok ? feats + (row0 + r) * K + k : feats, ok);
   }
-  for (int e = threadIdx.x; e < k3::NB * V; e += NT) {
+  for (int e = threadIdx.x; e < NCOL * V; e += NT) {
     const int n = e / V, k = k0 + 4 * (e % V);
     const bool ok = k < K && n < D + C;
     const float* src = n < D ? w0 + (int64_t)n * K + k : db + (int64_t)(n - D) * K + k;
@@ -463,11 +259,409 @@ __device__ __forceinline__ void stage_rows_chunk(float* sF, float* sB,
   }
 }
 
-// The rows pass. Warp w owns rows [16 w, 16 w + 16) of every [TR, *] product
-// and rows [16 w, 16 w + 16) of dW2. Shared memory (floats):
-//   ring [RING] (aliased by sG [TR][LDA]: q, then dz2 / dz1)
-//   | sH [TR][LDA] | sW2 [D][LDA] (nonlinear only)
-//   | sQm [CMAX][D] | sDa [TR][CMAX] | sDl [TR][CMAX]
+// The front half of the rows passes, for the tile of rows [row0, row0 +
+// rows): z1 = f W0^T + b0 streamed over K through the ring (NCOL = NB also
+// gives da = f dB^T -> sDa); h = relu(z1) -> sH and q = tanh(h W2^T + b2)
+// (nonlinear) or q = z1 (linear) -> sG (the ring); the logits l = q q_max^T
+// / sqrt(D) -> sL [TR][CMAX], rows >= rows at NEG. Warp w owns rows
+// [16 w, 16 w + 16) of every product. Starts and ends with a barrier.
+template <bool NL, int NCOL>
+__device__ __forceinline__ void rows_front(const float* __restrict__ feats, const Weights& w,
+                                           const float* __restrict__ db, int64_t row0,
+                                           int rows, int K, int C, const RowsSmem& sm) {
+  using namespace k3;
+  constexpr int STAGE = (TR + NCOL) * LDK;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;  // this warp's first row
+  const int nch = (K + KC - 1) / KC;
+  float* sG = sm.ring;
+  __syncthreads();  // the previous tile's sG and sL are consumed
+
+  float acc[NCOL / 8][4];
+#pragma unroll
+  for (int j = 0; j < NCOL / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  stage_rows_chunk<NCOL>(sm.ring, sm.ring + TR * LDK, feats, w.w0, db, row0, rows, K, C, 0);
+  cp_commit();
+  for (int ch = 0; ch < nch; ++ch) {
+    if (ch + 1 < nch) {
+      float* nxt = sm.ring + ((ch + 1) & 1) * STAGE;
+      stage_rows_chunk<NCOL>(nxt, nxt + TR * LDK, feats, w.w0, db, row0, rows, K, C,
+                             (ch + 1) * KC);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* sF = sm.ring + (ch & 1) * STAGE;
+    const float* sB = sF + TR * LDK;
+#pragma unroll 1
+    for (int ks = 0; ks < KC; ks += 8) {
+      uint32_t ah[4], al[4];
+      frag_a<LDK, 1>(ah, al, sF + wr * LDK + ks);
+#pragma unroll
+      for (int j = 0; j < NCOL / 8; ++j) {
+        uint32_t bh[2], bl[2];
+        frag_b<1, LDK>(bh, bl, sB + j * 8 * LDK + ks);
+        mma3(acc[j], ah, al, bh, bl);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  // h = relu(z1 + b0) -> sH (nonlinear) or q = z1 + b0 -> sG (linear);
+  // da -> sDa
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = wr + g + (i >> 1) * 8, d = j * 8 + 2 * t + (i & 1);
+      const float z1 = acc[j][i] + w.b0[d];
+      if constexpr (NL) sm.sH[r * LDA + d] = fmaxf(z1, 0.f);
+      else sG[r * LDA + d] = z1;
+    }
+  if constexpr (NCOL > D) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      sm.sDa[(wr + g + (i >> 1) * 8) * CMAX + 2 * t + (i & 1)] = acc[D / 8][i];
+  }
+  __syncthreads();
+
+  if constexpr (NL) {  // q = tanh(h W2^T + b2) -> sG
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll 1
+    for (int ks = 0; ks < D; ks += 8) {
+      uint32_t ah[4], al[4];
+      frag_a<LDA, 1>(ah, al, sm.sH + wr * LDA + ks);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        uint32_t bh[2], bl[2];
+        frag_b<1, LDA>(bh, bl, sm.sW2 + j * 8 * LDA + ks);
+        mma3(acc[j], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wr + g + (i >> 1) * 8, d = j * 8 + 2 * t + (i & 1);
+        sG[r * LDA + d] = tanhf(acc[j][i] + w.b2[d]);
+      }
+    __syncthreads();
+  }
+
+  // l = q q_max^T / sqrt(D): one n-tile of 8 columns (the classes), each
+  // warp over its own rows. B(k, c) = sQm[c][k]; classes >= C are zero.
+  float lg[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int ks = 0; ks < D; ks += 8) {
+    uint32_t ah[4], al[4], bh[2], bl[2];
+    frag_a<LDA, 1>(ah, al, sG + wr * LDA + ks);
+    frag_b<1, LDA>(bh, bl, sm.sQm + ks);
+    mma3(lg, ah, al, bh, bl);
+  }
+  const float scale = 1.f / sqrtf((float)D);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = wr + g + (i >> 1) * 8;
+    sm.sL[r * CMAX + 2 * t + (i & 1)] = r < rows ? lg[i] * scale : NEG;
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------- K1 ---
+// Two passes and a merge:
+//   logits (pool_logits_kernel, G1 CTAs, tiles of TR rows on the tensor
+//          cores): the masked logits l [n, C] and each CTA's max cmax [G1, C];
+//   pool   (pool_attend_kernel, row blocks x column chunks): with m = max
+//          of cmax, p = exp(l - m) and per-CTA partials of s = sum p and
+//          acc = p^T f, one read of f in f32 FFMA;
+//   merge  (pool_merge_kernel): B = sum acc / s, s, m, in a fixed order.
+
+template <bool NL>
+__global__ void __launch_bounds__(NT, 1) pool_logits_kernel(
+    const float* __restrict__ feats, Weights w, int n, int n_valid, int K, int C, int tpc,
+    float* __restrict__ logits, float* __restrict__ cmax) {
+  using namespace k3;
+  extern __shared__ float4 smem4[];
+  const RowsSmem sm = rows_smem<NL>(reinterpret_cast<float*>(smem4));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  load_resident<NL>(w, C, sm);
+  float mx = NEG;  // warps c < C: this CTA's max of class c
+  const int tiles = (n_valid + TR - 1) / TR;
+  const int t_begin = min((int)blockIdx.x * tpc, tiles), t_end = min(t_begin + tpc, tiles);
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int64_t row0 = (int64_t)tile * TR;
+    const int rows = min(TR, (int)(n_valid - row0));
+    rows_front<NL, D>(feats, w, nullptr, row0, rows, K, C, sm);
+    const int stored = (int)min((int64_t)TR, (int64_t)n - row0) * C;
+    for (int e = tid; e < stored; e += NT) logits[row0 * C + e] = sm.sL[(e / C) * CMAX + e % C];
+    if (warp < C)
+      for (int r = lane; r < TR; r += 32) mx = fmaxf(mx, sm.sL[r * CMAX + warp]);
+  }
+  // rows past the last tile (n > tiles * TR) are padding too
+  for (int64_t e = (int64_t)tiles * TR * C + (int64_t)blockIdx.x * NT + tid; e < (int64_t)n * C;
+       e += (int64_t)gridDim.x * NT)
+    logits[e] = NEG;
+  if (warp < C) {
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (lane == 0) cmax[blockIdx.x * C + warp] = mx;
+  }
+}
+
+// the streaming passes (K1's pool pass, K2)
+constexpr int PR = NT;               // rows per staged chunk of weights
+constexpr int KCH = 4 * NT;          // columns of f per CTA
+
+// p = exp(l - m) of rows [r0, r0 + nr) -> sP [PR][CMAX], one row per
+// thread; each thread adds its rows' p to ps.
+__device__ __forceinline__ void stage_weights(float* sP, const float* __restrict__ logits,
+                                              const float* sM, int64_t r0, int nr, int C,
+                                              float (&ps)[CMAX]) {
+  const int r = threadIdx.x;
+  if (r < nr) {
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      if (c < C) {
+        const float p = expf(logits[(r0 + r) * C + c] - sM[c]);
+        sP[r * CMAX + c] = p;
+        ps[c] += p;
+      }
+  }
+}
+
+// Sum of v over the warp; every lane ends with the same value.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// CTA (bx, by) takes rows [bx rpb, + rpb) and float4 columns [by NT, + NT)
+// of f. A row slot of W threads reads one row, thread (slot, x) its float4
+// column 4 (by NT + x); slots take rows slot, slot + slots, ... Partial
+// layout per row block: acc [C][K] | m [CMAX] | s [CMAX] (16-byte aligned).
+// Shared memory: sP [PR][CMAX] | sAcc [slots - 1][C][W] float4.
+__global__ void __launch_bounds__(NT) pool_attend_kernel(
+    const float* __restrict__ feats, const float* __restrict__ logits,
+    const float* __restrict__ cmax, int G1, int n_valid, int K, int C, int rpb,
+    float* __restrict__ part) {
+  extern __shared__ float4 smem4[];
+  float* sP = reinterpret_cast<float*>(smem4);
+  float4* sAcc = smem4 + PR * CMAX / 4;
+  __shared__ float sM[CMAX], sS[NT / 32][CMAX];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (warp == 0)  // m = the max of the logits pass's CTA maxima (exact in any order)
+    for (int c = 0; c < C; ++c) {
+      float mx = NEG;
+      for (int g = lane; g < G1; g += 32) mx = fmaxf(mx, cmax[g * C + c]);
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      if (lane == 0) sM[c] = mx;
+    }
+  const int W = min(K / 4 - (int)blockIdx.y * NT, NT), slots = NT / W;
+  const int slot = tid / W, x = tid % W, k4 = blockIdx.y * NT + x;
+  const int64_t r_begin = (int64_t)blockIdx.x * rpb;
+  const int64_t r_end = min((int64_t)n_valid, r_begin + rpb);
+  float acc[CMAX][4], ps[CMAX];
+#pragma unroll
+  for (int c = 0; c < CMAX; ++c) {
+    ps[c] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
+  }
+  for (int64_t r0 = r_begin; r0 < r_end; r0 += PR) {
+    const int nr = (int)min((int64_t)PR, r_end - r0);
+    __syncthreads();  // sM is set; the previous chunk's sP is consumed
+    stage_weights(sP, logits, sM, r0, nr, C, ps);
+    __syncthreads();
+    if (slot < slots) {
+      const float* f = feats + r0 * K + 4 * k4;
+#pragma unroll 4
+      for (int r = slot; r < nr; r += slots) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(f + (int64_t)r * K));
+#pragma unroll
+        for (int c = 0; c < CMAX; ++c)
+          if (c < C) {
+            const float p = sP[r * CMAX + c];
+            acc[c][0] = fmaf(p, v.x, acc[c][0]);
+            acc[c][1] = fmaf(p, v.y, acc[c][1]);
+            acc[c][2] = fmaf(p, v.z, acc[c][2]);
+            acc[c][3] = fmaf(p, v.w, acc[c][3]);
+          }
+      }
+    }
+  }
+  // this CTA's partial: acc summed over the slots in order; s over the
+  // threads in a fixed order (written by the first column chunk)
+  if (slot >= 1 && slot < slots)
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      if (c < C)
+        sAcc[((slot - 1) * C + c) * W + x] = make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
+#pragma unroll
+  for (int c = 0; c < CMAX; ++c)
+    if (c < C) {
+      const float v = warp_sum(ps[c]);
+      if (lane == 0) sS[warp][c] = v;
+    }
+  __syncthreads();
+  float* out = part + (int64_t)blockIdx.x * ((int64_t)C * K + 2 * CMAX);
+  if (slot == 0)
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      if (c < C) {
+        float4 a = make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
+        for (int sl = 1; sl < slots; ++sl) {
+          const float4 b = sAcc[((sl - 1) * C + c) * W + x];
+          a.x += b.x;
+          a.y += b.y;
+          a.z += b.z;
+          a.w += b.w;
+        }
+        *reinterpret_cast<float4*>(out + (int64_t)c * K + 4 * k4) = a;
+      }
+  if (blockIdx.y == 0 && tid < C) {
+    float s = 0.f;
+    for (int wi = 0; wi < NT / 32; ++wi) s += sS[wi][tid];
+    out[(int64_t)C * K + tid] = sM[tid];
+    out[(int64_t)C * K + CMAX + tid] = s;
+  }
+}
+
+// B = sum_g acc_g / max(sum_g s_g, 1e-30), m, s = sum_g s_g over the G row
+// blocks. CTA (bx, c) takes columns [32 bx, + 32) of class c; thread (j =
+// tid / 32, x = tid % 32) sums the partials g = j, j + 8, ... in order, then
+// thread j = 0 the 8 slices in order.
+__global__ void __launch_bounds__(NT) pool_merge_kernel(const float* __restrict__ part, int G,
+                                                        int K, int C, float* __restrict__ out_b,
+                                                        float* __restrict__ out_m,
+                                                        float* __restrict__ out_s) {
+  constexpr int SL = NT / 32;
+  __shared__ float sA[SL][32], sS[SL];
+  const int c = blockIdx.y, j = threadIdx.x >> 5, x = threadIdx.x & 31;
+  const int k = blockIdx.x * 32 + x;
+  const int64_t ps = (int64_t)C * K + 2 * CMAX;
+  float a = 0.f, s = 0.f;
+  for (int g = j; g < G; g += SL) {
+    const float* pg = part + g * ps;
+    if (k < K) a += pg[(int64_t)c * K + k];
+    s += pg[(int64_t)C * K + CMAX + c];
+  }
+  sA[j][x] = a;
+  if (x == 0) sS[j] = s;
+  __syncthreads();
+  if (j != 0) return;
+  a = 0.f;
+  s = 0.f;
+  for (int i = 0; i < SL; ++i) {
+    a += sA[i][x];
+    s += sS[i];
+  }
+  if (k < K) out_b[c * K + k] = a / fmaxf(s, 1e-30f);
+  if (blockIdx.x == 0 && x == 0) {
+    out_m[c] = part[(int64_t)C * K + c];
+    out_s[c] = s;
+  }
+}
+
+// ---------------------------------------------------------------- K2 ---
+// s_red[c] = sum_n exp(l[n,c] - m_c) (f_n . dB_c) / max(s_c, 1e-30): one
+// read of f, no q-MLP. CTA (bx, by) takes rows [bx rpb, + rpb) and columns
+// [by KCH, + KCH) of f and dB (f . dB is a sum over column chunks); warp w
+// takes rows w, w + 8, ... of each staged chunk, lane l the float4 columns
+// l, l + 32, ..., and sums p (f . dB) over its rows and columns. Per-CTA
+// partials [G][C], divided by s, are folded by pool_bwd1_fold_kernel.
+// Shared memory: sP [PR][CMAX] | sDB [C][kc].
+__global__ void __launch_bounds__(NT) pool_bwd1_kernel(
+    const float* __restrict__ feats, const float* __restrict__ logits,
+    const float* __restrict__ m_stat, const float* __restrict__ s_stat,
+    const float* __restrict__ db, int n_valid, int K, int C, int rpb,
+    float* __restrict__ part) {
+  extern __shared__ float4 smem4[];
+  float* sP = reinterpret_cast<float*>(smem4);
+  const float4* sDB = smem4 + PR * CMAX / 4;
+  __shared__ float sM[CMAX], sR[NT / 32][CMAX];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.y * KCH, kv = min(KCH, K - k0) / 4;
+  for (int e = tid; e < C * kv; e += NT)
+    smem4[PR * CMAX / 4 + e] =
+        *reinterpret_cast<const float4*>(db + (int64_t)(e / kv) * K + k0 + 4 * (e % kv));
+  if (tid < C) sM[tid] = m_stat[tid];
+  const int64_t r_begin = (int64_t)blockIdx.x * rpb;
+  const int64_t r_end = min((int64_t)n_valid, r_begin + rpb);
+  float red[CMAX], ps[CMAX];
+#pragma unroll
+  for (int c = 0; c < CMAX; ++c) red[c] = ps[c] = 0.f;
+  for (int64_t r0 = r_begin; r0 < r_end; r0 += PR) {
+    const int nr = (int)min((int64_t)PR, r_end - r0);
+    __syncthreads();  // sM and sDB are set; the previous chunk's sP is consumed
+    stage_weights(sP, logits, sM, r0, nr, C, ps);
+    __syncthreads();
+#pragma unroll 2
+    for (int r = warp; r < nr; r += NT / 32) {
+      const float4* f = reinterpret_cast<const float4*>(feats + (r0 + r) * K + k0);
+      float d[CMAX];
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c) d[c] = 0.f;
+#pragma unroll 4
+      for (int v = lane; v < kv; v += 32) {
+        const float4 x = __ldg(f + v);
+#pragma unroll
+        for (int c = 0; c < CMAX; ++c)
+          if (c < C) {
+            const float4 b = sDB[c * kv + v];
+            d[c] = fmaf(x.x, b.x, d[c]);
+            d[c] = fmaf(x.y, b.y, d[c]);
+            d[c] = fmaf(x.z, b.z, d[c]);
+            d[c] = fmaf(x.w, b.w, d[c]);
+          }
+      }
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c)
+        if (c < C) red[c] = fmaf(sP[r * CMAX + c], d[c], red[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CMAX; ++c)
+    if (c < C) {
+      const float v = warp_sum(red[c]);
+      if (lane == 0) sR[warp][c] = v;
+    }
+  __syncthreads();
+  if (tid < C) {
+    float a = 0.f;
+    for (int wi = 0; wi < NT / 32; ++wi) a += sR[wi][tid];
+    part[((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * C + tid] = a / fmaxf(s_stat[tid], 1e-30f);
+  }
+}
+
+// out[c] = sum_g part[g][c]: thread (j = tid / CMAX, c = tid % CMAX) sums
+// g = j, j + NT / CMAX, ... in order, then thread c the slices in order.
+__global__ void __launch_bounds__(NT) pool_bwd1_fold_kernel(const float* __restrict__ part,
+                                                            int G, int C,
+                                                            float* __restrict__ out) {
+  constexpr int SL = NT / CMAX;
+  __shared__ float sR[NT];
+  const int tid = threadIdx.x, j = tid / CMAX, c = tid % CMAX;
+  float a = 0.f;
+  if (c < C)
+    for (int g = j; g < G; g += SL) a += part[(int64_t)g * C + c];
+  sR[tid] = a;
+  __syncthreads();
+  if (tid < C) {
+    a = 0.f;
+    for (int i = 0; i < SL; ++i) a += sR[i * CMAX + tid];
+    out[tid] = a;
+  }
+}
+
+// ---------------------------------------------------------------- K3 ---
+// The rows pass: rows_front, then A, dl, dq_max, the MLP's backward. Warp w
+// owns rows [16 w, 16 w + 16) of every [TR, *] product and rows [16 w, 16 w
+// + 16) of dW2. Shared memory: rows_smem (sL holds dl after the logits).
 template <bool NL>
 __global__ void __launch_bounds__(NT, 1) pool_bwd2_rows_kernel(
     const float* __restrict__ feats, Weights w, const float* __restrict__ m_stat,
@@ -476,21 +670,18 @@ __global__ void __launch_bounds__(NT, 1) pool_bwd2_rows_kernel(
     int write_a, float* __restrict__ part, float* __restrict__ z) {
   using namespace k3;
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);
-  float* sG = ring;
-  float* sH = ring + RING;
-  float* sW2 = sH + ACT;
-  float* sQm = NL ? sW2 + ACT : sH;
-  float* sDa = sQm + CMAX * D;
-  float* sDl = sDa + TR * CMAX;
+  const RowsSmem sm = rows_smem<NL>(reinterpret_cast<float*>(smem4));
+  float* sG = sm.ring;
+  float* sH = sm.sH;
+  const float* sW2 = sm.sW2;
+  const float* sQm = sm.sQm;
+  float* sDl = sm.sL;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp * 16;            // this warp's first row (or dW2 row)
   const float scale = 1.f / sqrtf((float)D);
 
-  for (int e = tid; e < C * D; e += NT) sQm[e] = w.qm[e];
-  if constexpr (NL)
-    for (int e = tid; e < D * D; e += NT) sW2[(e / D) * LDA + e % D] = w.w2[e];
+  load_resident<NL>(w, C, sm);
 
   float wacc[NL ? D / 8 : 1][4];       // dW2 rows [wr, wr + 16), all D columns
 #pragma unroll
@@ -504,97 +695,19 @@ __global__ void __launch_bounds__(NT, 1) pool_bwd2_rows_kernel(
 
   const int tiles = (n_valid + TR - 1) / TR;
   const int t_begin = min((int)blockIdx.x * tpc, tiles), t_end = min(t_begin + tpc, tiles);
-  const int nch = (K + KC - 1) / KC;
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int64_t row0 = (int64_t)tile * TR;
     const int rows = min(TR, (int)(n_valid - row0));
-    __syncthreads();  // the previous tile's sG is consumed
+    rows_front<NL, NB>(feats, w, db, row0, rows, K, C, sm);
 
-    // z1 | da = f [W0; dB]^T, streamed over K in chunks through the ring
-    float acc[NB / 8][4];
-#pragma unroll
-    for (int j = 0; j < NB / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-    stage_rows_chunk(ring, ring + TR * LDK, feats, w.w0, db, row0, rows, K, C, 0);
-    cp_commit();
-    for (int ch = 0; ch < nch; ++ch) {
-      if (ch + 1 < nch) {
-        float* nxt = ring + ((ch + 1) & 1) * (TR + NB) * LDK;
-        stage_rows_chunk(nxt, nxt + TR * LDK, feats, w.w0, db, row0, rows, K, C,
-                         (ch + 1) * KC);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
-      }
-      __syncthreads();
-      const float* sF = ring + (ch & 1) * (TR + NB) * LDK;
-      const float* sB = sF + TR * LDK;
-#pragma unroll 1
-      for (int ks = 0; ks < KC; ks += 8) {
-        uint32_t ah[4], al[4];
-        frag_a<LDK, 1>(ah, al, sF + wr * LDK + ks);
-#pragma unroll
-        for (int j = 0; j < NB / 8; ++j) {
-          uint32_t bh[2], bl[2];
-          frag_b<1, LDK>(bh, bl, sB + j * 8 * LDK + ks);
-          mma3(acc[j], ah, al, bh, bl);
-        }
-      }
-      __syncthreads();  // this stage is consumed before it is refilled
-    }
-    // h = relu(z1 + b0) -> sH (nonlinear) or q = z1 + b0 -> sG (linear);
-    // da -> sDa
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wr + g + (i >> 1) * 8, d = j * 8 + 2 * t + (i & 1);
-        const float z1 = acc[j][i] + w.b0[d];
-        if constexpr (NL) sH[r * LDA + d] = fmaxf(z1, 0.f);
-        else sG[r * LDA + d] = z1;
-      }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      sDa[(wr + g + (i >> 1) * 8) * CMAX + 2 * t + (i & 1)] = acc[D / 8][i];
-    __syncthreads();
-
-    if constexpr (NL) {  // q = tanh(h W2^T + b2) -> sG
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-#pragma unroll 1
-      for (int ks = 0; ks < D; ks += 8) {
-        uint32_t ah[4], al[4];
-        frag_a<LDA, 1>(ah, al, sH + wr * LDA + ks);
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          uint32_t bh[2], bl[2];
-          frag_b<1, LDA>(bh, bl, sW2 + j * 8 * LDA + ks);
-          mma3(acc[j], ah, al, bh, bl);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = wr + g + (i >> 1) * 8, d = j * 8 + 2 * t + (i & 1);
-          sG[r * LDA + d] = tanhf(acc[j][i] + w.b2[d]);
-        }
-      __syncthreads();
-    }
-
-    // logits, A and dl = A (f . dB - s_red) per (row, class); A to Z
+    // A and dl = A (f . dB - s_red) per (row, class), dl over the logits
+    // in sL; A to Z
     for (int e = tid; e < TR * C; e += NT) {
       const int r = e / C, c = e % C;
       float a = 0.f, dl = 0.f;
       if (r < rows) {
-        float l = 0.f;
-        for (int k = 0; k < D; ++k) l = fmaf(sG[r * LDA + k], sQm[c * D + k], l);
-        a = attn_weight(l * scale, m_stat[c], s_stat[c]);
-        dl = a * (sDa[r * CMAX + c] - s_red[c]);
+        a = attn_weight(sm.sL[r * CMAX + c], m_stat[c], s_stat[c]);
+        dl = a * (sm.sDa[r * CMAX + c] - s_red[c]);
       }
       sDl[r * CMAX + c] = dl;
       if (write_a) z[(row0 + r) * zld + D + c] = a;
@@ -624,7 +737,7 @@ __global__ void __launch_bounds__(NT, 1) pool_bwd2_rows_kernel(
       float4 dq = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int c = 0; c < C; ++c) {
         const float dl = sDl[r * CMAX + c];
-        const float4 qm = *reinterpret_cast<const float4*>(sQm + c * D + d);
+        const float4 qm = *reinterpret_cast<const float4*>(sQm + c * LDA + d);
         dq.x = fmaf(dl, qm.x, dq.x);
         dq.y = fmaf(dl, qm.y, dq.y);
         dq.z = fmaf(dl, qm.z, dq.z);
@@ -658,6 +771,7 @@ __global__ void __launch_bounds__(NT, 1) pool_bwd2_rows_kernel(
         }
       }
       // dh = dz2 W2: A(r, d) = sG[r][d], B(d, j) = sW2[d][j]
+      float acc[D / 8][4];
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
 #pragma unroll
@@ -863,18 +977,6 @@ __global__ void __launch_bounds__(NT) pool_bwd2_df_kernel(
       }
 }
 
-size_t smem_bytes(int which, int K, int C) {
-  size_t f = (size_t)T * K + IC * LDM + (size_t)C * D + T * CMAX;
-  if (which == 1) f += T * D + (size_t)C * K + 3 * CMAX;
-  else f += T * D + (size_t)C * K + CMAX * NT;
-  return f * sizeof(float);
-}
-
-const void* kernel_of(int which, bool nl) {
-  if (which == 1) return nl ? (const void*)pool_fwd_kernel<true> : (const void*)pool_fwd_kernel<false>;
-  return nl ? (const void*)pool_bwd1_kernel<true> : (const void*)pool_bwd1_kernel<false>;
-}
-
 bool bad_args(int n, int n_valid, int K, int C) {
   return K <= 0 || K % 4 != 0 || C < 1 || C > CMAX || n_valid < 1 || n_valid > n;
 }
@@ -891,22 +993,6 @@ int sm_count() {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return sms;
-}
-
-// Checks shared by the K1 and K2 entry points; sets the kernel's
-// shared-memory limit.
-int prepare(int which, int nonlinear, int n, int n_valid, int K, int C, size_t* smem) {
-  if ((which != 1 && which != 2) || bad_args(n, n_valid, K, C))
-    return (int)cudaErrorInvalidValue;
-  *smem = smem_bytes(which, K, C);
-  if (*smem > (size_t)smem_limit()) return (int)cudaErrorInvalidValue;
-  return (int)cudaFuncSetAttribute(kernel_of(which, nonlinear != 0),
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-}
-
-int tiles_per_block(int n_valid, int G) {
-  const int tiles = (n_valid + T - 1) / T;
-  return (tiles + G - 1) / G;
 }
 
 Weights weights(const void* w0, const void* b0, const void* w2, const void* b2,
@@ -971,76 +1057,136 @@ int bwd2_plan(int nonlinear, int n, int n_valid, int K, int C, int need_df, Bwd2
   return 0;
 }
 
-}  // namespace
-
-// Number of blocks G to launch for kernel `which` (1 = forward, 2 = backward
-// pass 1): at most the blocks the card holds at once, at most one per tile.
-// Returns G > 0, or -(CUDA error code).
-extern "C" int tpumil_attention_pool_grid(int which, int nonlinear, int n, int n_valid,
-                                          int K, int C) {
-  size_t smem = 0;
-  int err = prepare(which, nonlinear, n, n_valid, K, C, &smem);
-  if (err != 0) return -err;
-  int per_sm = 0;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel_of(which, nonlinear != 0), NT, smem);
-  if (err != 0) return -err;
-  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
-  const int tiles = (n_valid + T - 1) / T;
-  const int gmax = per_sm * sm_count();
-  const int tpc = (tiles + gmax - 1) / gmax;
-  return (tiles + tpc - 1) / tpc;
+// Row blocks of the streaming passes (K1's pool pass, K2): about four CTAs
+// per SM, at least 32 rows each.
+void stream_rows(int n_valid, int* rpb, int* blocks) {
+  const int want = 4 * sm_count();
+  const int per = (n_valid + want - 1) / want;
+  *rpb = per > 32 ? per : 32;
+  *blocks = (n_valid + *rpb - 1) / *rpb;
 }
 
-// K1. part: G * C * (K + 2) floats of scratch. Outputs B [C, K], m [C], s [C].
+// K1's launch shapes and scratch (floats): part [G2, C K + 2 CMAX] |
+// cmax [G1, C].
+struct FwdPlan {
+  int G1, tpc, G2, rpb, chunks;
+  int64_t part, cmax;
+  size_t smem1, smem2;
+  const void* logits_kernel;
+};
+
+int fwd_plan(int nonlinear, int n, int n_valid, int K, int C, FwdPlan* p) {
+  using namespace k3;
+  if (bad_args(n, n_valid, K, C)) return (int)cudaErrorInvalidValue;
+  const bool nl = nonlinear != 0;
+  p->logits_kernel = nl ? (const void*)pool_logits_kernel<true>
+                        : (const void*)pool_logits_kernel<false>;
+  p->smem1 = rows_smem_floats(nl) * sizeof(float);
+  if (p->smem1 > (size_t)smem_limit()) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(p->logits_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem1);
+  if (err != 0) return err;
+  int per_sm = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p->logits_kernel, NT,
+                                                           p->smem1);
+  if (err != 0) return err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tiles = (n_valid + TR - 1) / TR;
+  const int gmax = per_sm * sm_count();
+  p->tpc = (tiles + gmax - 1) / gmax;
+  p->G1 = (tiles + p->tpc - 1) / p->tpc;
+  stream_rows(n_valid, &p->rpb, &p->G2);
+  p->chunks = (K / 4 + NT - 1) / NT;
+  p->smem2 = ((size_t)PR * CMAX + (size_t)C * NT * 4) * sizeof(float);
+  p->part = (int64_t)p->G2 * ((int64_t)C * K + 2 * CMAX);
+  p->cmax = (int64_t)p->G1 * C;
+  return 0;
+}
+
+// K2's launch shape and scratch (floats): part [G * chunks, C].
+struct Bwd1Plan {
+  int G, rpb, chunks;
+  int64_t part;
+  size_t smem;
+};
+
+int bwd1_plan(int n, int n_valid, int K, int C, Bwd1Plan* p) {
+  if (bad_args(n, n_valid, K, C)) return (int)cudaErrorInvalidValue;
+  stream_rows(n_valid, &p->rpb, &p->G);
+  p->chunks = (K + KCH - 1) / KCH;
+  p->smem = ((size_t)PR * CMAX + (size_t)C * (K < KCH ? K : KCH)) * sizeof(float);
+  p->part = (int64_t)p->G * p->chunks * C;
+  return 0;
+}
+
+}  // namespace
+
+// Floats of scratch that K1 needs, or -(CUDA error code).
+extern "C" long long tpumil_attention_pool_fwd_scratch(int nonlinear, int n, int n_valid, int K,
+                                                       int C) {
+  FwdPlan p;
+  const int err = fwd_plan(nonlinear, n, n_valid, K, C, &p);
+  if (err != 0) return -(long long)err;
+  return (long long)(p.part + p.cmax);
+}
+
+// K1. scratch: tpumil_attention_pool_fwd_scratch floats. Outputs B [C, K],
+// m [C], s [C] and the masked logits [n, C] (rows >= n_valid at -1e30).
 extern "C" int tpumil_attention_pool_fwd(const void* feats, const void* w0, const void* b0,
                                          const void* w2, const void* b2, const void* qm,
                                          int n, int n_valid, int K, int C, int nonlinear,
-                                         int G, void* part, void* out_b, void* out_m,
-                                         void* out_s, void* stream) {
-  size_t smem = 0;
-  int err = prepare(1, nonlinear, n, n_valid, K, C, &smem);
-  if (err != 0 || G < 1) return err != 0 ? err : (int)cudaErrorInvalidValue;
+                                         void* scratch, void* out_b, void* out_m, void* out_s,
+                                         void* logits, void* stream) {
+  FwdPlan p;
+  int err = fwd_plan(nonlinear, n, n_valid, K, C, &p);
+  if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Weights w = weights(w0, b0, w2, b2, qm);
-  const int tpc = tiles_per_block(n_valid, G);
   const float* f = static_cast<const float*>(feats);
-  float* p = static_cast<float*>(part);
-  if (nonlinear) pool_fwd_kernel<true><<<G, NT, smem, st>>>(f, w, n_valid, K, C, tpc, p);
-  else pool_fwd_kernel<false><<<G, NT, smem, st>>>(f, w, n_valid, K, C, tpc, p);
+  float* part = static_cast<float*>(scratch);
+  float* cmax = part + p.part;
+  float* l = static_cast<float*>(logits);
+  if (nonlinear)
+    pool_logits_kernel<true><<<p.G1, NT, p.smem1, st>>>(f, w, n, n_valid, K, C, p.tpc, l, cmax);
+  else
+    pool_logits_kernel<false><<<p.G1, NT, p.smem1, st>>>(f, w, n, n_valid, K, C, p.tpc, l, cmax);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  pool_merge_kernel<<<(C * K + 255) / 256, 256, 0, st>>>(
-      p, G, K, C, static_cast<float*>(out_b), static_cast<float*>(out_m),
+  pool_attend_kernel<<<dim3(p.G2, p.chunks), NT, p.smem2, st>>>(f, l, cmax, p.G1, n_valid, K, C,
+                                                                 p.rpb, part);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  pool_merge_kernel<<<dim3((K + 31) / 32, C), NT, 0, st>>>(
+      part, p.G2, K, C, static_cast<float*>(out_b), static_cast<float*>(out_m),
       static_cast<float*>(out_s));
   return (int)cudaGetLastError();
 }
 
-// K2. part: G * C floats of scratch. Output s_red [C].
-extern "C" int tpumil_attention_pool_bwd1(const void* feats, const void* w0, const void* b0,
-                                          const void* w2, const void* b2, const void* qm,
+// Floats of scratch that K2 needs, or -(CUDA error code).
+extern "C" long long tpumil_attention_pool_bwd1_scratch(int n, int n_valid, int K, int C) {
+  Bwd1Plan p;
+  const int err = bwd1_plan(n, n_valid, K, C, &p);
+  if (err != 0) return -(long long)err;
+  return (long long)p.part;
+}
+
+// K2. scratch: tpumil_attention_pool_bwd1_scratch floats. Output s_red [C].
+extern "C" int tpumil_attention_pool_bwd1(const void* feats, const void* logits,
                                           const void* m_stat, const void* s_stat,
                                           const void* db, int n, int n_valid, int K, int C,
-                                          int nonlinear, int G, void* part, void* s_red,
-                                          void* stream) {
-  size_t smem = 0;
-  int err = prepare(2, nonlinear, n, n_valid, K, C, &smem);
-  if (err != 0 || G < 1) return err != 0 ? err : (int)cudaErrorInvalidValue;
+                                          void* scratch, void* s_red, void* stream) {
+  Bwd1Plan p;
+  int err = bwd1_plan(n, n_valid, K, C, &p);
+  if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Weights w = weights(w0, b0, w2, b2, qm);
-  const int tpc = tiles_per_block(n_valid, G);
-  const float* f = static_cast<const float*>(feats);
-  const float* ms = static_cast<const float*>(m_stat);
-  const float* ss = static_cast<const float*>(s_stat);
-  const float* g = static_cast<const float*>(db);
-  float* p = static_cast<float*>(part);
-  if (nonlinear)
-    pool_bwd1_kernel<true><<<G, NT, smem, st>>>(f, w, ms, ss, g, n_valid, K, C, tpc, p);
-  else
-    pool_bwd1_kernel<false><<<G, NT, smem, st>>>(f, w, ms, ss, g, n_valid, K, C, tpc, p);
+  float* part = static_cast<float*>(scratch);
+  pool_bwd1_kernel<<<dim3(p.G, p.chunks), NT, p.smem, st>>>(
+      static_cast<const float*>(feats), static_cast<const float*>(logits),
+      static_cast<const float*>(m_stat), static_cast<const float*>(s_stat),
+      static_cast<const float*>(db), n_valid, K, C, p.rpb, part);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  reduce_partials<<<1, 32, 0, st>>>(p, G, C, static_cast<float*>(s_red));
+  pool_bwd1_fold_kernel<<<1, NT, 0, st>>>(part, p.G * p.chunks, C, static_cast<float*>(s_red));
   return (int)cudaGetLastError();
 }
 

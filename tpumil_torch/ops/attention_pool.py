@@ -8,9 +8,11 @@
 Three wrappers of the hand-written Hopper kernels in
 ``csrc/attention_pool.cu``:
 
-  * ``attention_pool_fwd`` (K1): ``(B [C, K], m [C], s [C])``, the softmax
-    max and denominator kept as residuals for the backward;
-  * ``attention_pool_bwd1`` (K2): ``s_red[c] = sum_n A[n,c] (f_n . dB_c)``;
+  * ``attention_pool_fwd`` (K1): ``(B [C, K], m [C], s [C], logits [N,
+    C])``, the softmax max and denominator and the masked logits kept as
+    residuals for the backward;
+  * ``attention_pool_bwd1`` (K2): ``s_red[c] = sum_n A[n,c] (f_n . dB_c)``
+    from K1's logits, one read of the bag;
   * ``attention_pool_bwd2`` (K3): ``(dF, dW0, db0, dW2, db2, dq_max)``,
     recomputing every activation tile by tile from (m, s); dF only when
     asked for (``need_df``), else ``None``.
@@ -43,6 +45,12 @@ MAX_CLASSES = 8  # the kernels' compile-time bound (CMAX)
 
 # -- plain PyTorch versions --------------------------------------------------
 
+def _valid_rows(feats, n_valid):
+    """Row mask [N, 1]: rows ``>= n_valid`` are padding."""
+    return (torch.arange(feats.shape[0], device=feats.device)
+            < n_valid)[:, None]
+
+
 def _recompute(feats, w0, b0, w2, b2, q_max, n_valid, nonlinear):
     """(z1, h, q, masked logits [N, C], row mask [N, 1])."""
     z1 = feats @ w0.T + b0
@@ -51,7 +59,7 @@ def _recompute(feats, w0, b0, w2, b2, q_max, n_valid, nonlinear):
         q = torch.tanh(h @ w2.T + b2)
     else:
         h = q = z1
-    valid = (torch.arange(feats.shape[0], device=feats.device) < n_valid)[:, None]
+    valid = _valid_rows(feats, n_valid)
     logits = torch.where(valid, (q @ q_max.T) * SCALE,
                          torch.full((), NEG_INF, device=feats.device))
     return z1, h, q, logits, valid
@@ -63,21 +71,19 @@ def _attention(logits, valid, m, s):
 
 def attention_pool_plain(feats, w0, b0, w2, b2, q_max, n_valid: int,
                          nonlinear: bool = True):
-    """K1's plain version: ``(B [C, K], m [C], s [C])``."""
+    """K1's plain version: ``(B [C, K], m [C], s [C], logits [N, C])``, the
+    logits of rows ``>= n_valid`` at ``NEG_INF``."""
     _, _, _, logits, valid = _recompute(feats, w0, b0, w2, b2, q_max, n_valid,
                                         nonlinear)
     m = logits.amax(dim=0)
     s = torch.where(valid, torch.exp(logits - m), 0.0).sum(dim=0)
     a = _attention(logits, valid, m, s)
-    return a.T @ feats, m, s
+    return a.T @ feats, m, s, logits
 
 
-def attention_pool_bwd1_plain(feats, w0, b0, w2, b2, q_max, m, s, db,
-                              n_valid: int, nonlinear: bool = True):
-    """K2's plain version: ``s_red [C]``."""
-    _, _, _, logits, valid = _recompute(feats, w0, b0, w2, b2, q_max, n_valid,
-                                        nonlinear)
-    a = _attention(logits, valid, m, s)
+def attention_pool_bwd1_plain(feats, logits, m, s, db, n_valid: int):
+    """K2's plain version: ``s_red [C]`` from K1's logits."""
+    a = _attention(logits, _valid_rows(feats, n_valid), m, s)
     return (a * (feats @ db.T)).sum(dim=0)
 
 
@@ -108,24 +114,43 @@ def attention_pool_bwd2_plain(feats, w0, b0, w2, b2, q_max, m, s, db, s_red,
 # -- kernel wrappers -----------------------------------------------------------
 
 def _check(feats, n_valid, nonlinear, w0, b0, w2, b2, q_max, *stats) -> None:
-    """Shapes, dtype, device and layout of a wrapper's inputs, checked
-    before any pointer reaches a kernel. ``stats`` is (m, s, dB[, s_red])
-    for the backward passes."""
+    """Shapes, dtype, device and layout of K1's and K3's inputs, checked
+    before any pointer reaches a kernel. ``stats`` is (m, s, dB, s_red)
+    for K3."""
     if feats.dim() != 2 or q_max.dim() != 2:
         raise ValueError(f"feats must be [N, K] and q_max [C, D], got "
                          f"{tuple(feats.shape)} and {tuple(q_max.shape)}")
     n, k = feats.shape
     c, d = q_max.shape[0], ATTN_DIM
-    if not 1 <= c <= MAX_CLASSES:
-        raise ValueError(f"{c} classes; the kernels take 1..{MAX_CLASSES}")
-    if not 1 <= int(n_valid) <= n:
-        raise ValueError(f"n_valid={n_valid} outside 1..{n}")
     want = [(feats, (n, k)), (w0, (d, k)), (b0, (d,)), (q_max, (c, d))]
     if nonlinear:
         if w2 is None or b2 is None:
             raise ValueError("the nonlinear q needs w2 and b2")
         want += [(w2, (d, d)), (b2, (d,))]
     want += list(zip(stats, [(c,), (c,), (c, k), (c,)]))
+    # feats, W0 and (K3) dB are copied to shared memory as 16-byte vectors
+    _validate(feats, n_valid, c, want, [feats, w0] + list(stats[2:3]))
+
+
+def _check_bwd1(feats, logits, m, s, db, n_valid) -> None:
+    """K2's inputs, as ``_check``."""
+    if feats.dim() != 2 or logits.dim() != 2:
+        raise ValueError(f"feats must be [N, K] and logits [N, C], got "
+                         f"{tuple(feats.shape)} and {tuple(logits.shape)}")
+    n, k = feats.shape
+    c = logits.shape[1]
+    want = [(feats, (n, k)), (logits, (n, c)), (m, (c,)), (s, (c,)),
+            (db, (c, k))]
+    # feats and dB are read as 16-byte vectors
+    _validate(feats, n_valid, c, want, [feats, db])
+
+
+def _validate(feats, n_valid, c, want, vectors) -> None:
+    n, k = feats.shape
+    if not 1 <= c <= MAX_CLASSES:
+        raise ValueError(f"{c} classes; the kernels take 1..{MAX_CLASSES}")
+    if not 1 <= int(n_valid) <= n:
+        raise ValueError(f"n_valid={n_valid} outside 1..{n}")
     for t, shape in want:
         if tuple(t.shape) != shape:
             raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
@@ -140,9 +165,6 @@ def _check(feats, n_valid, nonlinear, w0, b0, w2, b2, q_max, *stats) -> None:
         if k % 4 != 0:
             raise ValueError(f"K={k}: the kernels read rows as 16-byte "
                              "vectors and need K % 4 == 0")
-        # feats, W0 and (backward) dB are copied to shared memory as
-        # 16-byte vectors
-        vectors = [feats, w0] + ([stats[2]] if len(stats) > 2 else [])
         if any(t.data_ptr() % 16 for t in vectors):
             raise ValueError("feats, w0 and dB must start on a 16-byte "
                              "boundary")
@@ -156,13 +178,15 @@ def _launch_args(feats, w0, b0, w2, b2, q_max):
             None if b2 is None else b2.data_ptr(), q_max.data_ptr()]
 
 
-def _grid(lib, which, nonlinear, n, n_valid, k, c) -> int:
-    g = lib.tpumil_attention_pool_grid(which, int(nonlinear), n, n_valid, k, c)
-    if g <= 0:
+def _scratch(floats: int, which: int, feats, c) -> torch.Tensor:
+    """Kernel ``which``'s scratch of ``floats`` floats, as its plan
+    returned it (``-(CUDA error)`` when it has no launch configuration)."""
+    if floats <= 0:
+        n, k = feats.shape
         raise RuntimeError(f"attention_pool kernel {which}: no launch "
-                           f"configuration (CUDA error {-g}) for N={n}, "
+                           f"configuration (CUDA error {-floats}) for N={n}, "
                            f"K={k}, C={c}")
-    return g
+    return torch.empty((floats,), device=feats.device)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -172,9 +196,11 @@ def _raise_on(err: int, name: str) -> None:
 
 def attention_pool_fwd(feats, w0, b0, w2, b2, q_max, n_valid: int,
                        nonlinear: bool = True
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1: ``(B [C, K], m [C], s [C])`` of one bag. ``w2``/``b2`` are
-    ignored (may be None) for the linear q."""
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """K1: ``(B [C, K], m [C], s [C], logits [N, C])`` of one bag, the
+    logits of rows ``>= n_valid`` at ``NEG_INF``. ``w2``/``b2`` are ignored
+    (may be None) for the linear q."""
     _check(feats, n_valid, nonlinear, w0, b0, w2, b2, q_max)
     if feats.device.type == "cpu":
         return attention_pool_plain(feats, w0, b0, w2, b2, q_max, n_valid,
@@ -185,42 +211,42 @@ def attention_pool_fwd(feats, w0, b0, w2, b2, q_max, n_valid: int,
     n, k = feats.shape
     c = q_max.shape[0]
     with torch.cuda.device(feats.device):
-        g = _grid(lib, 1, nonlinear, n, int(n_valid), k, c)
-        part = torch.empty((g, c * (k + 2)), device=feats.device)
+        scratch = _scratch(lib.tpumil_attention_pool_fwd_scratch(
+            int(nonlinear), n, int(n_valid), k, c), 1, feats, c)
         out = torch.empty((c, k), device=feats.device)
         m = torch.empty((c,), device=feats.device)
         s = torch.empty((c,), device=feats.device)
+        logits = torch.empty((n, c), device=feats.device)
         stream = torch.cuda.current_stream(feats.device).cuda_stream
         err = lib.tpumil_attention_pool_fwd(
             *_launch_args(feats, w0, b0, w2, b2, q_max), n, int(n_valid), k,
-            c, int(nonlinear), g, part.data_ptr(), out.data_ptr(),
-            m.data_ptr(), s.data_ptr(), stream)
+            c, int(nonlinear), scratch.data_ptr(), out.data_ptr(),
+            m.data_ptr(), s.data_ptr(), logits.data_ptr(), stream)
     _raise_on(err, "attention_pool_fwd")
     attention_pool_fwd.launches += 1
-    return out, m, s
+    return out, m, s, logits
 
 
-def attention_pool_bwd1(feats, w0, b0, w2, b2, q_max, m, s, db, n_valid: int,
-                        nonlinear: bool = True) -> torch.Tensor:
-    """K2: ``s_red [C]``."""
-    _check(feats, n_valid, nonlinear, w0, b0, w2, b2, q_max, m, s, db)
+def attention_pool_bwd1(feats, logits, m, s, db, n_valid: int
+                        ) -> torch.Tensor:
+    """K2: ``s_red [C]`` from K1's ``logits`` and (m, s)."""
+    _check_bwd1(feats, logits, m, s, db, n_valid)
     if feats.device.type == "cpu":
-        return attention_pool_bwd1_plain(feats, w0, b0, w2, b2, q_max, m, s,
-                                         db, n_valid, nonlinear)
+        return attention_pool_bwd1_plain(feats, logits, m, s, db, n_valid)
     from tpumil_torch.utils.build import load_library
 
     lib = load_library()
     n, k = feats.shape
-    c = q_max.shape[0]
+    c = logits.shape[1]
     with torch.cuda.device(feats.device):
-        g = _grid(lib, 2, nonlinear, n, int(n_valid), k, c)
-        part = torch.empty((g, c), device=feats.device)
+        scratch = _scratch(lib.tpumil_attention_pool_bwd1_scratch(
+            n, int(n_valid), k, c), 2, feats, c)
         s_red = torch.empty((c,), device=feats.device)
         stream = torch.cuda.current_stream(feats.device).cuda_stream
         err = lib.tpumil_attention_pool_bwd1(
-            *_launch_args(feats, w0, b0, w2, b2, q_max), m.data_ptr(),
-            s.data_ptr(), db.data_ptr(), n, int(n_valid), k, c,
-            int(nonlinear), g, part.data_ptr(), s_red.data_ptr(), stream)
+            feats.data_ptr(), logits.data_ptr(), m.data_ptr(), s.data_ptr(),
+            db.data_ptr(), n, int(n_valid), k, c, scratch.data_ptr(),
+            s_red.data_ptr(), stream)
     _raise_on(err, "attention_pool_bwd1")
     attention_pool_bwd1.launches += 1
     return s_red
@@ -246,13 +272,8 @@ def attention_pool_bwd2(feats, w0, b0, w2, b2, q_max, m, s, db, s_red,
     c = q_max.shape[0]
     d = ATTN_DIM
     with torch.cuda.device(feats.device):
-        scratch_n = lib.tpumil_attention_pool_bwd2_scratch(
-            int(nonlinear), n, int(n_valid), k, c, int(need_df))
-        if scratch_n <= 0:
-            raise RuntimeError(f"attention_pool kernel 3: no launch "
-                               f"configuration (CUDA error {-scratch_n}) for "
-                               f"N={n}, K={k}, C={c}")
-        scratch = torch.empty((scratch_n,), device=feats.device)
+        scratch = _scratch(lib.tpumil_attention_pool_bwd2_scratch(
+            int(nonlinear), n, int(n_valid), k, c, int(need_df)), 3, feats, c)
         size = int(lib.tpumil_attention_pool_bwd2_size(k, c))
         grads = torch.empty((size,), device=feats.device)
         df = torch.empty((n, k), device=feats.device) if need_df else None
@@ -278,28 +299,29 @@ attention_pool_bwd2.launches = 0
 class TrainablePool(torch.autograd.Function):
     """``B = pool(feats, w0, b0, w2, b2, q_max)`` with the streaming
     backward (K2 then K3) in place of autograd through Q and A: the saved
-    residuals are the inputs and the softmax stats (m, s), and no [N, D]
-    activation is kept. K3 computes dF [N, K] only when feats need a
-    gradient (``ctx.needs_input_grad[0]``); otherwise their gradient is
-    ``None``. For the linear q pass ``w2 = b2 = None``."""
+    residuals are the inputs, the softmax stats (m, s) and the logits [N, C]
+    (K2 reads them), and no [N, D] activation is kept. K3 computes dF [N, K]
+    only when feats need a gradient (``ctx.needs_input_grad[0]``);
+    otherwise their gradient is ``None``. For the linear q pass
+    ``w2 = b2 = None``."""
 
     @staticmethod
     def forward(ctx, feats, w0, b0, w2, b2, q_max, n_valid: int,
                 nonlinear: bool):
-        out, m, s = attention_pool_fwd(feats, w0, b0, w2, b2, q_max, n_valid,
-                                       nonlinear)
-        ctx.save_for_backward(feats, w0, b0, w2, b2, q_max, m, s)
+        out, m, s, logits = attention_pool_fwd(feats, w0, b0, w2, b2, q_max,
+                                               n_valid, nonlinear)
+        ctx.save_for_backward(feats, w0, b0, w2, b2, q_max, m, s, logits)
         ctx.n_valid, ctx.nonlinear = int(n_valid), bool(nonlinear)
         return out
 
     @staticmethod
     def backward(ctx, db):
-        feats, w0, b0, w2, b2, q_max, m, s = ctx.saved_tensors
+        feats, w0, b0, w2, b2, q_max, m, s, logits = ctx.saved_tensors
         db = db.contiguous()
-        args = (feats, w0, b0, w2, b2, q_max, m, s, db)
-        s_red = attention_pool_bwd1(*args, ctx.n_valid, ctx.nonlinear)
+        s_red = attention_pool_bwd1(feats, logits, m, s, db, ctx.n_valid)
         df, dw0, db0, dw2, db2, dqm = attention_pool_bwd2(
-            *args, s_red, ctx.n_valid, ctx.nonlinear, ctx.needs_input_grad[0])
+            feats, w0, b0, w2, b2, q_max, m, s, db, s_red, ctx.n_valid,
+            ctx.nonlinear, ctx.needs_input_grad[0])
         if not ctx.nonlinear:
             dw2 = db2 = None
         return df, dw0, db0, dw2, db2, dqm, None, None
@@ -364,8 +386,8 @@ def fused_bag_forward(model, feats: torch.Tensor,
     with torch.no_grad():
         c_logits, mask, q_max = _instance_stream(model, feats, n_valid)
         w0, b0, w2, b2 = _q_weights(model)
-        bemb, _, _ = attention_pool_fwd(feats, w0.detach(), b0.detach(),
-                                        None if w2 is None else w2.detach(),
-                                        None if b2 is None else b2.detach(),
-                                        q_max, n_valid, model.cfg.nonlinear)
+        bemb = attention_pool_fwd(feats, w0.detach(), b0.detach(),
+                                  None if w2 is None else w2.detach(),
+                                  None if b2 is None else b2.detach(),
+                                  q_max, n_valid, model.cfg.nonlinear)[0]
         return _bag_logits(model, bemb), masked_max(c_logits, mask, dim=0)

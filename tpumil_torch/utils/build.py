@@ -106,15 +106,17 @@ def load_library() -> ctypes.CDLL:
             lib.tpumil_instance_norm.argtypes = [p, p, i, i, i, i, i,
                                                  ctypes.c_float, i, i, p]
             lib.tpumil_instance_norm.restype = i
-            lib.tpumil_attention_pool_grid.argtypes = [i, i, i, i, i, i]
-            lib.tpumil_attention_pool_grid.restype = i
+            lib.tpumil_attention_pool_fwd_scratch.argtypes = [i] * 5
+            lib.tpumil_attention_pool_fwd_scratch.restype = ctypes.c_longlong
+            lib.tpumil_attention_pool_bwd1_scratch.argtypes = [i] * 4
+            lib.tpumil_attention_pool_bwd1_scratch.restype = ctypes.c_longlong
             lib.tpumil_attention_pool_bwd2_size.argtypes = [i, i]
             lib.tpumil_attention_pool_bwd2_size.restype = ctypes.c_longlong
             lib.tpumil_attention_pool_bwd2_scratch.argtypes = [i] * 6
             lib.tpumil_attention_pool_bwd2_scratch.restype = ctypes.c_longlong
-            lib.tpumil_attention_pool_fwd.argtypes = [p] * 6 + [i] * 6 + [p] * 5
+            lib.tpumil_attention_pool_fwd.argtypes = [p] * 6 + [i] * 5 + [p] * 6
             lib.tpumil_attention_pool_fwd.restype = i
-            lib.tpumil_attention_pool_bwd1.argtypes = [p] * 9 + [i] * 6 + [p] * 3
+            lib.tpumil_attention_pool_bwd1.argtypes = [p] * 5 + [i] * 4 + [p] * 3
             lib.tpumil_attention_pool_bwd1.restype = i
             lib.tpumil_attention_pool_bwd2.argtypes = [p] * 10 + [i] * 6 + [p] * 4
             lib.tpumil_attention_pool_bwd2.restype = i
