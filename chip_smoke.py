@@ -29,9 +29,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   9. train_wsi -- python -m tpumil_torch.cli.train_wsi --device cuda on a
                   synthetic TCGA-shaped CSV dataset, 5-fold-cv
  10. stem      -- the fused stem (K5) vs its plain version at B=128 224^2,
-                  f32 and bf16, blank tiles, a bitwise rerun; CUDA-event
-                  times of K5, the plain version and the conv route (cuDNN
-                  conv, K4, max pool: the stem of other inputs)
+                  f32 and bf16, blank tiles and a tile-boundary image, a
+                  bitwise rerun; CUDA-event times of K5, the plain version
+                  and the conv route (cuDNN conv, K4, max pool: the stem of
+                  other inputs), beside the earlier FFMA design's times
  11. compute_feats -- a JPEG tree of 2 classes x 3 bags x 256 patches:
                   python -m tpumil_torch.cli.compute_feats --device cuda,
                   compute_feats in-process with the stem in K5 and, in
@@ -82,6 +83,10 @@ K3_RTOL_F32 = 1e-5
 K3_FFMA_MS = {1000: 0.216, 65529: 4.600, 262144: 18.052}
 K1_FFMA_MS = {1000: 0.072, 65529: 0.731, 262144: 2.801}
 K2_FFMA_MS = {1000: 0.078, 65529: 0.833, 262144: 3.334}
+# K5's earlier design (an FFMA conv writing the conv plane, then a pool and
+# normalize pass), ms at B=128 on an NVIDIA H100 80GB HBM3 at 700 W: f32 in
+# two runs, bf16
+K5_FFMA_MS = {torch.float32: "1.122 / 1.182", torch.bfloat16: "0.965"}
 TRAIN_N = [1500, 4000, 9000, 20000, 40000, 65529]
 TRAIN_EPOCHS = 3
 # the compute_feats tree: classes x bags per class x patches of 224^2
@@ -963,7 +968,9 @@ def stem_err(name: str, x, w7, got, want, dtype) -> float:
 def phase_stem(gpu: str) -> dict:
     """K5 against its plain version at the compute_feats batch; times of the
     kernel, the plain version and the conv route (cuDNN conv, K4, max
-    pool)."""
+    pool). The f32 bound counts the conv's products as 3xTF32 on the tensor
+    cores (three TF32 products per f32 product), the f32 FFMA bound
+    beside."""
     from tpumil_torch.ops.stem import fused_stem, stem_plain
     from tpumil_torch.utils.device import disable_tf32
 
@@ -986,31 +993,50 @@ def phase_stem(gpu: str) -> dict:
         flops = 2 * B * 112 * 112 * 64 * 7 * 7 * 3  # the conv; the rest < 1%
         io = nbytes(x, w7, got)
         bound_ms, bound_by = bound(io, flops, dtype)
+        ffma = ""
+        if dtype == torch.float32:
+            # the f32 products run as 3xTF32: three TF32 products each
+            ffma = f"; at f32 FFMA rates {bound_ms:.4f} ms"
+            t_ops, t_bytes = 3 * flops / TF32_FLOPS, io / HBM_BYTES_PER_S
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
         out[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by}
         log(f"[stem] K5 {name} [{B},224,224,3] f32 in -> [{B},56,56,64] "
             f"{name}: max_abs_err {err:.3e}, rerun bitwise equal; kernel "
             f"{ms:.4f} / {ms2:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
             f"{plain_ms:.4f} ms, conv route (cuDNN conv + K4 + max pool) "
-            f"{route_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{flops} flop, {io} B); {gpu}")
+            f"{route_ms:.4f} ms (the earlier FFMA design: "
+            f"{K5_FFMA_MS[dtype]} ms); bound {bound_ms:.4f} ms ({bound_by}"
+            f"{', 3xTF32' if ffma else ''}: {flops} flop, {io} B){ffma}; "
+            f"{gpu}")
         del got
     torch.cuda.empty_cache()
     # blank tissue: black (a constant conv plane: exact zeros), white (not
-    # constant: the zero padding reaches the border), near-white, near-black
+    # constant: the zero padding reaches the border), near-white,
+    # near-black; and a tile-boundary image: bright input rows and columns
+    # that, in a pooled window, reach the conv row (column) that the
+    # previous tile (column tile) of the kernel computes first
     noise = torch.from_numpy(np.random.default_rng(6).integers(
         0, 3, (1, 224, 224, 3)).astype(np.float32) / 255).cuda()
+    edge = noise.clone()
+    edge[:, [2 * r0 - 5 for r0 in range(8, 112, 8)]] = 1.0
+    edge[:, :, [2 * c0 - 5 for c0 in range(16, 112, 16)]] = 1.0
     blank = torch.cat([torch.zeros_like(noise), torch.ones_like(noise),
-                       1 - noise, noise])
+                       1 - noise, noise, edge])
     for dtype in (torch.float32, torch.bfloat16):
         got = fused_stem(blank, w7, dtype)
         torch.cuda.synchronize()
         if not torch.equal(got[0], torch.zeros_like(got[0])):
             raise AssertionError("K5: a black image must give exact zeros")
-        err = stem_err(f"K5 blank {dtype}", blank, w7, got,
-                       stem_plain(blank, w7, dtype), dtype)
+        want = stem_plain(blank, w7, dtype)
+        err = stem_err(f"K5 blank {dtype}", blank[:4], w7, got[:4], want[:4],
+                       dtype)
+        err_edge = stem_err(f"K5 tile boundary {dtype}", blank[4:], w7,
+                            got[4:], want[4:], dtype)
         log(f"[stem] {str(dtype)[6:]} black -> exact zeros; white, "
-            f"near-white, near-black max_abs_err {err:.3e}")
+            f"near-white, near-black max_abs_err {err:.3e}; tile-boundary "
+            f"image max_abs_err {err_edge:.3e}")
     return out
 
 

@@ -135,14 +135,22 @@ def test_import_and_cpu_use_need_no_nvcc(tmp_path):
 
 
 def test_build_is_keyed_by_source_contents(tmp_path, monkeypatch):
-    """The library name hashes the sources: an edit means a rebuild; no
-    nvcc means a clear error, not a silent fallback."""
+    """The library name hashes the sources and the headers beside them: an
+    edit to either means a rebuild; no nvcc means a clear error, not a
+    silent fallback."""
     src = tmp_path / "k.cu"
     src.write_text("// v1\n")
     h1 = build._source_hash([src])
     assert build._source_hash([src]) == h1
     src.write_text("// v2\n")
     assert build._source_hash([src]) != h1
+    # a header beside the sources is hashed too, though never compiled alone
+    hdr = tmp_path / "k.cuh"
+    hdr.write_text("// h1\n")
+    h2 = build._source_hash([src])
+    assert h2 != h1
+    hdr.write_text("// h2\n")
+    assert build._source_hash([src]) != h2
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -446,8 +446,15 @@ def _stem_check(x, w7, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_stem_kernel_matches_plain(card, dtype):
     x, w7 = _stem_inputs(card, 4)
-    _stem_check(x, w7, dtype)
+    got = _stem_check(x, w7, dtype)
     _stem_check(x.to(torch.bfloat16), w7, dtype)   # a bf16 input
+    # a contiguous x whose data is not 16-byte aligned (the kernel reads x
+    # in 16-byte vectors; the wrapper copies such an x)
+    flat = torch.empty(x.numel() + 1, device=card)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    assert torch.equal(_stem_check(shifted, w7, dtype), got)
 
 
 @pytest.mark.cuda
@@ -464,6 +471,33 @@ def test_stem_kernel_blank_tiles(card, dtype):
                    torch.ones(1, 224, 224, 3, device=card), 1 - noise, noise])
     got = _stem_check(x, w7, dtype)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+def _tile_boundary_images(b, device):
+    """Dim [0, 0.1) images crossed by bright input rows and columns that,
+    inside a pooled window, only the conv row r0 - 1 of a tile start r0
+    (8 conv rows a tile) or the conv column c0 - 1 of a column tile start
+    c0 (16 columns) reaches, or reaches first: image k puts them 5 - k % 3
+    input rows (columns) before 2 r0 (2 c0). The window's maximum then sits
+    on the row the previous tile computes, or on the column the warp to the
+    left computes."""
+    rng = np.random.default_rng(3)
+    x = 0.1 * rng.random((b, 224, 224, 3), np.float32)
+    for k in range(b):
+        s = -5 + k % 3
+        x[k, [2 * r0 + s for r0 in range(8, 112, 8)]] = 1.0
+        x[k, :, [2 * c0 + s for c0 in range(16, 112, 16)]] = 1.0
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3, 128])
+def test_stem_kernel_tile_boundary_windows(card, dtype, b):
+    _, w7 = _stem_inputs(card, 1)
+    x = _tile_boundary_images(b, card)
+    got = _stem_check(x, w7, dtype)
+    assert torch.equal(fused_stem(x, w7, dtype), got)
 
 
 @pytest.mark.cuda

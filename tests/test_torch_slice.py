@@ -116,7 +116,7 @@ _PORT_MODULES = [
     "tpumil_torch.data.patches", "tpumil_torch.infer.features",
     "tpumil_torch.cli.compute_feats", "chip_smoke", "tools.serve_profile",
     "tools.train_profile", "tools.extract_profile", "tools.in_sweep",
-    "tools.k3_accuracy",
+    "tools.k3_accuracy", "tools.stem_profile",
 ]
 # not installed beside the card (sklearn, optax, orbax, pandas), or the
 # package the port replaces

@@ -2,7 +2,10 @@
 plain version) against the JAX package's ``fused_stem`` (Pallas, interpret
 mode) and ``xla_stem``, and the port's ResNet18, whose stem at 224^2 is
 ``fused_stem``, against its conv-route stem and the JAX ResNet, all on the
-same numpy inputs.
+same numpy inputs. Two tests pin on the CPU what the Hopper kernel
+(csrc/stem.cu) rests on: pooling the raw conv before normalizing gives the
+plain stem's bits, and its 3xTF32 product meets the f32 bar where one TF32
+pass does not.
 """
 
 import jax.numpy as jnp
@@ -17,7 +20,8 @@ from tpumil.ops.stem_pallas import fused_stem as jax_fused_stem
 from tpumil.ops.stem_pallas import xla_stem
 from tpumil_torch.io import from_jax
 from tpumil_torch.models import embedder, resnet
-from tpumil_torch.ops.stem import fused_stem
+from tpumil_torch.ops.instance_norm import EPS, instance_norm_plain
+from tpumil_torch.ops.stem import fused_stem, stem_plain
 
 CPU = torch.device("cpu")
 # tests/test_stem_pallas.py's bar: the same sums in another order
@@ -159,3 +163,83 @@ def test_resnet18_fused_stem_route_matches_default_and_jax(monkeypatch):
     np.testing.assert_allclose(feats["k5"].numpy(), feats["conv"].numpy(),
                                **TOL)
     np.testing.assert_allclose(feats["k5"].numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_first_order_is_the_plain_stem(dtype):
+    """The kernel's order: max-pool the raw conv values (rounded to the
+    compute dtype), then normalize the maximum, apply ReLU and round.
+    Normalizing with rsqrt > 0, ReLU and rounding are monotone
+    non-decreasing, so this is bit for bit the plain stem, which normalizes
+    every value first. The statistics are instance_norm_plain's."""
+    x, w = _inputs("kaiming")
+    white = np.ones((1, 224, 224, 3), np.float32)
+    for img in (x, white):
+        xt, wt = torch.from_numpy(img), torch.from_numpy(w)
+        conv = F.conv2d(xt.permute(0, 3, 1, 2).to(dtype),
+                        wt.permute(3, 2, 0, 1).to(dtype), stride=2, padding=3)
+        h = conv.permute(0, 2, 3, 1).float()
+        mean = h.mean(dim=(1, 2), keepdim=True)
+        var = (h - mean).square().mean(dim=(1, 2), keepdim=True)
+        pooled = F.max_pool2d(h.permute(0, 3, 1, 2), kernel_size=3, stride=2,
+                              padding=1).permute(0, 2, 3, 1)
+        got = torch.relu((pooled - mean) * torch.rsqrt(var + EPS)).to(dtype)
+        want = stem_plain(xt, wt, dtype)
+        assert got.abs().max() > 1.0  # a real comparison
+        assert torch.equal(got, want)
+
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """f32 -> TF32 (10 mantissa bits), to nearest with ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds (finite values)."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _emulated_conv(x: np.ndarray, w: np.ndarray, passes: int) -> np.ndarray:
+    """The f32 conv as the kernel's tensor cores compute it: the 147 taps in
+    kh-major (HWIO) order padded to 152 with zero weights, in k8 steps; each
+    operand split x = hi + lo in TF32 (hi = tf32(x), lo = tf32(x - hi));
+    per step the products lo*hi + hi*lo + hi*hi (passes=3, 3xTF32) or hi*hi
+    alone (passes=1, single-pass TF32) into a fresh sum (exact products, the
+    sum in float64, rounded to f32), folded into the f32 sum by an f32 add.
+    Returns [B, 112, 112, 64] f32."""
+    b = x.shape[0]
+    xp = np.pad(x, ((0, 0), (3, 3), (3, 3), (0, 0)))
+    cols = np.stack([xp[:, kh:kh + 224:2, kw:kw + 224:2, :]
+                     for kh in range(7) for kw in range(7)], axis=3)
+    cols = np.pad(cols.reshape(-1, 147), ((0, 0), (0, 5)))
+    wk = np.pad(w.reshape(147, 64), ((0, 5), (0, 0)))
+    ah, bh = _tf32(cols), _tf32(wk)
+    al, bl = _tf32(cols - ah), _tf32(wk - bh)
+    acc = np.zeros((cols.shape[0], 64), np.float32)
+    for k in range(0, 152, 8):
+        s = slice(k, k + 8)
+        prods = [(ah, bh)] if passes == 1 else [(al, bh), (ah, bl), (ah, bh)]
+        step = sum(a[:, s].astype(np.float64) @ c[s].astype(np.float64)
+                   for a, c in prods)
+        acc = acc + step.astype(np.float32)
+    return acc.reshape(b, 112, 112, 64)
+
+
+def _stem_from_conv(conv: np.ndarray) -> np.ndarray:
+    h = instance_norm_plain(torch.from_numpy(conv), relu=True)
+    return F.max_pool2d(h.permute(0, 3, 1, 2), kernel_size=3, stride=2,
+                        padding=1).permute(0, 2, 3, 1).numpy()
+
+
+def test_3xtf32_conv_is_within_the_f32_bar():
+    """The kernel's f32 stream on the tensor cores, emulated in numpy: the
+    3xTF32 stem is within TOL of xla_stem in f32 on both weight cases,
+    while single-pass TF32 misses that bar on at least one, so the bar
+    tells the two apart."""
+    single_pass_misses = []
+    for weights in ("kaiming", "0.1"):
+        x, w = _inputs(weights)
+        want = np.asarray(xla_stem(jnp.asarray(x), jnp.asarray(w),
+                                   compute_dtype=jnp.float32))
+        got = _stem_from_conv(_emulated_conv(x, w, passes=3))
+        np.testing.assert_allclose(got, want, **TOL)
+        one = _stem_from_conv(_emulated_conv(x, w, passes=1))
+        single_pass_misses.append(not np.allclose(one, want, **TOL))
+    assert any(single_pass_misses)

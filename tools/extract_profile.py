@@ -48,7 +48,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATASET = "synth"
 # kernel class -> substrings of the (lower-cased) kernel name, tried in order
 CLASSES = (
-    ("stem kernel (K5)", ("stem_conv_kernel", "stem_norm_pool_kernel")),
+    ("stem kernel (K5)", ("stem_conv_pool_kernel", "stem_norm_kernel")),
     ("IN kernel (K4)", ("instance_norm_kernel",)),
     ("layout transpose", ("nhwctonchw", "nchwtonhwc")),
     ("conv/gemm", ("conv", "xmma", "gemm", "cudnn", "implicit", "cutlass",

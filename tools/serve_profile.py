@@ -45,7 +45,7 @@ CLIENTS = 4   # concurrent /v1/embed clients
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # kernel class -> substrings of the (lower-cased) kernel name, tried in order
 CLASSES = (
-    ("stem kernel (K5)", ("stem_conv_kernel", "stem_norm_pool_kernel")),
+    ("stem kernel (K5)", ("stem_conv_pool_kernel", "stem_norm_kernel")),
     ("IN kernel", ("instance_norm_kernel",)),
     ("maxpool", ("max_pool",)),
     ("layout transpose", ("nhwctonchw", "nchwtonhwc")),

@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int D = 128;                // ATTN_DIM
@@ -160,44 +162,6 @@ __device__ __forceinline__ void load_resident(const Weights& w, int C, const Row
     sm.sQm[(e / D) * LDA + e % D] = e < C * D ? w.qm[e] : 0.f;
   if constexpr (NL)
     for (int e = threadIdx.x; e < D * D; e += NT) sm.sW2[(e / D) * LDA + e % D] = w.w2[e];
-}
-
-// 3xTF32 on mma.sync: x = hi + lo with hi = tf32(x), lo = tf32(x - hi);
-// a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi, f32-level error (the dropped
-// a_lo b_lo is 2^-22 relative).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b over one k8 step. The three products go into a fresh
-// accumulator, small terms first, which is then added to d by an f32 add
-// (round to nearest): the tensor core's own accumulation rounds toward zero,
-// and over a long K that bias alone would exceed f32-level error.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(t, al, bh);
-  mma_tf32(t, ah, bl);
-  mma_tf32(t, ah, bh);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += t[i];
 }
 
 // Fragments of mma.m16n8k8 (PTX ISA), g = lane / 4, t = lane % 4:

@@ -9,8 +9,11 @@ returns the post-stem activation ``[B, 56, 56, 64]`` in ``compute_dtype``
 The wrapper launches the hand-written Hopper kernel ``csrc/stem.cu`` on a
 CUDA tensor, or raises; on a CPU tensor it runs ``stem_plain``. Numerics:
 the conv takes operands in the compute dtype and sums in f32 (true f32 for
-the f32 stream, no TF32), its output is rounded to the compute dtype, and
-the statistics are taken in f32 of those rounded values.
+the f32 stream, through 3xTF32 on the tensor cores, never single-pass
+TF32), its output is rounded to the compute dtype, and the statistics are
+taken in f32 of those rounded values. The kernel max-pools the raw conv
+values before it normalizes them: normalizing, ReLU and rounding are
+monotone non-decreasing, so this gives the bits of normalizing first.
 """
 
 from __future__ import annotations
@@ -70,6 +73,8 @@ def fused_stem(x: torch.Tensor, w7: torch.Tensor,
                          f"on {w7.device}")
     if not (x.is_contiguous() and w7.is_contiguous()):
         raise ValueError("fused_stem expects contiguous NHWC x and HWIO w7")
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel reads x in 16-byte vectors
     b = x.shape[0]
     out = torch.empty((b, H_OUT, H_OUT, C_OUT), dtype=compute_dtype,
                       device=x.device)
@@ -78,17 +83,15 @@ def fused_stem(x: torch.Tensor, w7: torch.Tensor,
     from tpumil_torch.utils.build import load_library
 
     lib = load_library()
-    # the conv output and per-tile (mean, M2) statistics between the two
-    # kernels of csrc/stem.cu
-    conv = torch.empty((b, 2 * H_OUT, 2 * H_OUT, C_OUT), dtype=compute_dtype,
-                       device=x.device)
-    part = torch.empty((b, lib.tpumil_stem_tiles(), C_OUT, 2),
-                       dtype=torch.float32, device=x.device)
+    code = _DTYPE_CODES[compute_dtype]
+    # the per-tile (mean, M2) statistics and the tiles' last conv rows,
+    # row-pooled, between the two kernels of csrc/stem.cu
+    scratch = torch.empty(lib.tpumil_stem_scratch(b, code), dtype=torch.uint8,
+                          device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tpumil_stem(x.data_ptr(), w7.data_ptr(), conv.data_ptr(),
-                              part.data_ptr(), out.data_ptr(), b,
-                              _DTYPE_CODES[compute_dtype], EPS, stream)
+        err = lib.tpumil_stem(x.data_ptr(), w7.data_ptr(), scratch.data_ptr(),
+                              out.data_ptr(), b, code, EPS, stream)
     if err != 0:
         raise RuntimeError(f"stem kernel launch failed: CUDA error {err}")
     fused_stem.launches += 1

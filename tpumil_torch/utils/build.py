@@ -5,7 +5,8 @@ Every ``tpumil_torch/csrc/*.cu`` is compiled by its own ``nvcc`` for
 shared library with a plain C interface, loaded with ``ctypes``. No source
 includes PyTorch's headers, so a build takes seconds, not minutes.
 The library lands in ``build/tpumil_torch/`` at the repo root, named by a
-hash of the sources' contents: a rebuild happens only when a source changes.
+hash of the sources' and headers' contents: a rebuild happens only when one
+changes.
 
 Nothing here runs at import time: the first kernel launch builds.
 """
@@ -37,8 +38,13 @@ def sources() -> List[Path]:
 
 
 def _source_hash(srcs: List[Path]) -> str:
+    """A hash of the flags, the sources and every ``*.cuh`` header beside
+    them: the headers are not compiled on their own, but an edit to one
+    must rebuild the sources that include it."""
+    headers = sorted({h for d in {p.parent for p in srcs}
+                      for h in d.glob("*.cuh")})
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in [*srcs, *headers]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -120,9 +126,9 @@ def load_library() -> ctypes.CDLL:
             lib.tpumil_attention_pool_bwd1.restype = i
             lib.tpumil_attention_pool_bwd2.argtypes = [p] * 10 + [i] * 6 + [p] * 4
             lib.tpumil_attention_pool_bwd2.restype = i
-            lib.tpumil_stem_tiles.argtypes = []
-            lib.tpumil_stem_tiles.restype = i
-            lib.tpumil_stem.argtypes = [p] * 5 + [i] * 2 + [ctypes.c_float, p]
+            lib.tpumil_stem_scratch.argtypes = [i, i]
+            lib.tpumil_stem_scratch.restype = ctypes.c_longlong
+            lib.tpumil_stem.argtypes = [p] * 4 + [i] * 2 + [ctypes.c_float, p]
             lib.tpumil_stem.restype = i
             _lib = lib
         return _lib
