@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, training and feature-extraction
-paths once on one CUDA card (sm_90a).
+"""Drive the PyTorch port's serving, training (WSI and classic MIL) and
+feature-extraction paths once on one CUDA card (sm_90a).
 
     python3 chip_smoke.py
 
@@ -28,12 +28,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   working set per instance
   9. train_wsi -- python -m tpumil_torch.cli.train_wsi --device cuda on a
                   synthetic TCGA-shaped CSV dataset, 5-fold-cv
- 10. stem      -- the fused stem (K5) vs its plain version at B=128 224^2,
+ 10. train_mil -- the classic-MIL path on tests/data/musk1_mini.svm (K=166,
+                  C=1, 3 folds x 2 epochs): python -m tpumil_torch.cli.train_mil
+                  for dsmil, run_mil_cv for abmil/meanpool/maxpool, ms per bag
+                  step; then BagTrainer's kernel route at K=166 (padded for
+                  K1-K3) against its eager route, with K1-K3 launch counts
+ 11. stem      -- the fused stem (K5) vs its plain version at B=128 224^2,
                   f32 and bf16, blank tiles and a tile-boundary image, a
                   bitwise rerun; CUDA-event times of K5, the plain version
                   and the conv route (cuDNN conv, K4, max pool: the stem of
                   other inputs), beside the earlier FFMA design's times
- 11. compute_feats -- a JPEG tree of 2 classes x 3 bags x 256 patches:
+ 12. compute_feats -- a JPEG tree of 2 classes x 3 bags x 256 patches:
                   python -m tpumil_torch.cli.compute_feats --device cuda,
                   compute_feats in-process with the stem in K5 and, in
                   turns, in the conv route, then train_wsi on the CSVs
@@ -931,6 +936,116 @@ def phase_train_wsi() -> None:
             f" fold_0.pth loads on the card; {'; '.join(final)}")
 
 
+MIL_MODELS = ("dsmil", "abmil", "meanpool", "maxpool")
+MUSK = os.path.join(REPO, "tests", "data", "musk1_mini.svm")
+
+
+def mil_step_ms(model: str, store, dev, epochs: int = 3) -> float:
+    """Host-clock ms of one bag step of ``model`` over the store's bags
+    (the default "auto" route), after a warm-up epoch, synced."""
+    from tpumil_torch.models.dsmil import DSMILConfig
+    from tpumil_torch.train.trainer import BagTrainer
+
+    trainer = BagTrainer(DSMILConfig(store.feats.shape[1], 1),
+                         weight_decay=5e-3, model=model, device=dev)
+    net, opt = trainer.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    trainer.train_epoch(net, opt, store, 2e-4, rng, shuffle=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        trainer.train_epoch(net, opt, store, 2e-4, rng, shuffle=False)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (epochs * store.num_bags)
+
+
+def phase_train_mil(gpu: str) -> None:
+    """The classic-MIL benchmark path on musk1_mini (30 bags of 4-17
+    instances, K = 166, C = 1, 3 folds x 2 epochs): train_mil as a
+    subprocess for dsmil, run_mil_cv in-process for the other models, ms
+    per bag step of each; then the kernel route at K = 166 against the
+    eager route on the same bags."""
+    from tpumil_torch.data.device_store import DeviceBagStore
+    from tpumil_torch.data.mil_bench import parse_mil_file
+    from tpumil_torch.models.dsmil import DSMILConfig
+    from tpumil_torch.ops import attention_pool as ap
+    from tpumil_torch.train import schemes
+    from tpumil_torch.train.trainer import BagTrainer
+
+    dev = torch.device("cuda")
+    bags = parse_mil_file(MUSK, 166)
+    store = DeviceBagStore(bags, device=dev)
+    args = ["--data_file", MUSK, "--num_feats", "166", "--cv_fold", "3",
+            "--num_epoch", "2"]
+    for model in MIL_MODELS:
+        t0 = time.perf_counter()
+        if model == "dsmil":  # the CLI a user runs, on the default device
+            with tempfile.TemporaryDirectory() as tmp:
+                proc = subprocess.run(
+                    [sys.executable, "-m", "tpumil_torch.cli.train_mil", *args,
+                     "--model", model], cwd=tmp, capture_output=True,
+                    text=True, timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
+            if proc.returncode != 0 or "device: cuda" not in proc.stdout:
+                raise RuntimeError(f"train_mil exited {proc.returncode}:\n"
+                                   f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            lines = proc.stdout.splitlines()
+            how = "python -m tpumil_torch.cli.train_mil " + " ".join(args)
+        else:
+            lines = []
+            schemes.run_mil_cv(bags, schemes.MILBenchConfig(
+                num_feats=166, cv_fold=3, num_epochs=2, model=model,
+                device=dev), log=lines.append)
+            torch.cuda.synchronize()
+            how = "run_mil_cv in-process"
+        wall = time.perf_counter() - t0
+        accs = [float(l.rsplit(" ", 1)[1]) for l in lines
+                if "optimal accuracy" in l]
+        if len(accs) != 3 or not all(0.0 <= a <= 1.0 for a in accs):
+            raise AssertionError(f"{model}: fold accuracies {accs}")
+        log(f"[train_mil] {model}: {how}: fold accuracies {accs} in "
+            f"{wall:.2f} s wall; {mil_step_ms(model, store, dev):.3f} ms per "
+            f"bag step (auto route, host clock, mean of 3 epochs x "
+            f"{store.num_bags} bags); {gpu}")
+
+    # the kernel route at K = 166, C = 1 against the eager route
+    misaligned = sum(store.bag(i).data_ptr() % 16 != 0
+                     for i in range(store.num_bags))
+    kernels = (ap.attention_pool_fwd, ap.attention_pool_bwd1,
+               ap.attention_pool_bwd2)
+    runs = {}
+    for route, thr in (("kernel", 0), ("eager", None)):
+        trainer = BagTrainer(DSMILConfig(166, 1), weight_decay=5e-3,
+                             fused_threshold=thr, device=dev)
+        trainer.pos_weight = np.asarray([1.0], np.float32)
+        net, opt = trainer.init(torch.Generator().manual_seed(0))
+        for fn in kernels:  # the route starts here
+            fn.launches = 0
+        _, _, loss = trainer.train_epoch(net, opt, store, 2e-4,
+                                         np.random.default_rng(0),
+                                         shuffle=False)
+        scores, _ = trainer.predict(net, store)
+        torch.cuda.synchronize()
+        runs[route] = (loss, {k: v.cpu() for k, v in net.state_dict().items()},
+                       scores, [fn.launches for fn in kernels],
+                       trainer.fused_dispatches)
+    (l_k, p_k, s_k, n_k, d_k), (l_e, p_e, s_e, n_e, _) = runs["kernel"], \
+        runs["eager"]
+    np.testing.assert_allclose(l_k, l_e, rtol=2e-4)
+    for name in p_k:
+        np.testing.assert_allclose(p_k[name].numpy(), p_e[name].numpy(),
+                                   rtol=1e-3, atol=2e-5, err_msg=name)
+    np.testing.assert_allclose(s_k, s_e, rtol=0, atol=1e-4)
+    if min(n_k) == 0 or max(n_e) != 0 or not np.isfinite(s_k).all():
+        raise AssertionError(f"K1/K2/K3 launches: kernel route {n_k}, eager "
+                             f"route {n_e}")
+    log(f"[train_mil] BagTrainer(DSMILConfig(166, 1), fused_threshold=0) vs "
+        f"fused_threshold=None, one epoch over {store.num_bags} musk bags "
+        f"({misaligned} views off a 16-byte boundary): losses {l_k:.6f} / "
+        f"{l_e:.6f} (rtol 2e-4), params rtol 1e-3 atol 2e-5, scores atol "
+        f"1e-4 -- all hold; max |d score| {np.abs(s_k - s_e).max():.3e}; "
+        f"{d_k} fused dispatches; K1/K2/K3 launches {n_k}")
+
+
 def stem_inputs(b: int, seed: int):
     """[0, 1) images and kaiming-scaled HWIO stem weights on the card."""
     rng = np.random.default_rng(seed)
@@ -1179,6 +1294,7 @@ def main() -> int:
     pool = phase_pool(gpu)
     train = phase_train(gpu)
     phase_train_wsi()
+    phase_train_mil(gpu)
     stem = phase_stem(gpu)[torch.float32]
     k5_launches = phase_compute_feats(gpu)
     kernels = [{

@@ -184,18 +184,23 @@ def test_load_mil_pth_accepts_both_i_classifier_spellings(tmp_path, spelling):
 
 
 def test_registry_and_unported_schemas(tmp_path):
+    """Every registry name is a model now; the pooling schema loads."""
+    from tpumil_torch.models.abmil import ABMIL
+    from tpumil_torch.models.poolmil import MaxPool, MeanPool
+
     assert get_model("dsmil") is DSMIL
-    for name in ("abmil", "meanpool", "maxpool"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(name)
+    for name, cls in (("abmil", ABMIL), ("meanpool", MeanPool),
+                      ("maxpool", MaxPool)):
+        assert get_model(name) is cls
     with pytest.raises(ValueError, match="unknown"):
         get_model("transmil")
     path = str(tmp_path / "pool.pth")
     torch.save({"i_classifier.fc.weight": torch.zeros(2, 8),
                 "i_classifier.fc.bias": torch.zeros(2),
                 "pooling.mode": torch.tensor(1.0)}, path)
-    with pytest.raises(NotImplementedError):
-        torch_ckpt.load_mil_pth(path, CPU)
+    model, cfg, name = torch_ckpt.load_mil_pth(path, CPU)
+    assert name == "maxpool" and isinstance(model, MaxPool)
+    assert cfg == DSMILConfig(feats_size=8, num_classes=2)
 
 
 def test_strip_projection_head_drops_last_four():

@@ -397,6 +397,50 @@ def test_trainer_paths_on_card(card):
         assert tr.fused_dispatches == 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [166, 230])
+def test_kernel_route_at_any_k_on_card(card, k):
+    """The kernel route at the classic MIL widths, K = 166 (musk) and 230
+    (elephant, fox, tiger), C = 1, against the eager route through
+    BagTrainer from the same init: store views of 664- or 920-byte rows
+    start off 16-byte boundaries, so fused_bag_loss and fused_bag_forward
+    pad them for K1-K3, which launch."""
+    from tpumil_torch.data.bags import Bag
+    from tpumil_torch.data.device_store import DeviceBagStore
+    from tpumil_torch.models.dsmil import DSMILConfig
+    from tpumil_torch.train.trainer import BagTrainer
+
+    rng = np.random.default_rng(4)
+    bags = [Bag(rng.standard_normal((n, k), np.float32),
+                np.asarray([float(i % 2)], np.float32), f"b{i}")
+            for i, n in enumerate([5, 17, 9, 300, 1201, 3])]
+    store = DeviceBagStore(bags, device=card)
+    assert any(store.bag(i).data_ptr() % 16 for i in range(len(bags)))
+    kernels = (ap.attention_pool_fwd, ap.attention_pool_bwd1,
+               ap.attention_pool_bwd2)
+    out = {}
+    for thr in (0, None):
+        tr = BagTrainer(DSMILConfig(k, 1), weight_decay=1e-3,
+                        fused_threshold=thr, device=card)
+        tr.pos_weight = np.asarray([1.2], np.float32)
+        model, opt = tr.init(torch.Generator().manual_seed(0))
+        for fn in kernels:
+            fn.launches = 0
+        losses = [tr.train_epoch(model, opt, store, 1e-3,
+                                 np.random.default_rng(e), shuffle=False)[2]
+                  for e in range(2)]
+        scores = tr.predict(model, store)[0]
+        out[thr] = (losses, {n: v.cpu() for n, v in model.state_dict().items()},
+                    scores, [fn.launches for fn in kernels])
+    (l_k, p_k, s_k, n_k), (l_e, p_e, s_e, n_e) = out[0], out[None]
+    assert min(n_k) > 0 and max(n_e) == 0
+    np.testing.assert_allclose(l_k, l_e, rtol=2e-4)
+    for name in p_k:
+        np.testing.assert_allclose(p_k[name].numpy(), p_e[name].numpy(),
+                                   rtol=1e-3, atol=2e-5, err_msg=name)
+    np.testing.assert_allclose(s_k, s_e, rtol=1e-4, atol=1e-5)
+
+
 # -- K5: the ResNet stem (csrc/stem.cu) ----------------------------------------
 
 from tpumil_torch.ops.stem import fused_stem, stem_plain  # noqa: E402

@@ -138,7 +138,7 @@ def test_checkpoints_round_trip(tmp_path):
     jparams, _, _ = jckpt.load_mil_pth(path)
     for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(jparams)):
         np.testing.assert_array_equal(a, np.asarray(b))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="schema"):
         torch_ckpt.save_mil_pth(model, path, "abmil")
 
     state = str(tmp_path / "state")
@@ -312,8 +312,8 @@ def test_train_wsi_cli(tmp_path, monkeypatch, capsys):
         assert len(json.load(f)) == 1
     model, cfg, _ = torch_ckpt.load_mil_pth(str(save_dir / "fold_0.pth"), CPU)
     assert cfg.feats_size == 16 and cfg.num_classes == 1
-    for argv, exc in ((["--device", "cpu", "--model", "abmil"],
-                       NotImplementedError),
+    for argv, exc in ((["--device", "cpu", "--model", "transmil"],
+                       ValueError),
                       (["--device", "cpu", "--inst_shard", "2"],
                        NotImplementedError)):
         with pytest.raises(exc):

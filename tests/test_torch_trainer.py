@@ -188,8 +188,11 @@ def test_routing_decisions():
     assert BagTrainer(cfg, fused_threshold=t, device=CPU)._use_fused(t)
     assert not BagTrainer(cfg, fused_threshold=t,
                           device=CPU)._use_fused(t // 2)
-    with pytest.raises(NotImplementedError, match="abmil"):
-        BagTrainer(cfg, model="abmil", device=CPU)
+    for model in ("abmil", "meanpool", "maxpool"):  # DSMIL's pool only
+        assert not BagTrainer(cfg, model=model, fused_threshold=t,
+                              device=CPU)._use_fused(65536)
+    with pytest.raises(ValueError, match="transmil"):
+        BagTrainer(cfg, model="transmil", device=CPU)
 
     tr = BagTrainer(DSMILConfig(feats_size=512, num_classes=1), device=CPU)
     assert tr.fused_threshold == "auto"

@@ -1,8 +1,11 @@
-"""Where a training step's time goes on the card: one DSMIL bag step
-(forward, backward, Adam) of ``tpumil_torch``'s BagTrainer on the kernel
-route (K1-K3) and on the eager route, broken down by device kernel.
+"""Where a training step's time goes on the card: one bag step (forward,
+backward, Adam) of ``tpumil_torch``'s BagTrainer, for DSMIL on the kernel
+route (K1-K3) and on the eager route, for the other registry models on the
+eager route, broken down by device kernel.
 
     python -m tools.train_profile                # on a CUDA card
+    python -m tools.train_profile --sizes 17 --feats_size 166 \
+        --num_classes 1 --model abmil            # a musk-sized bag
     python -m tools.train_profile --device cpu --sizes 300 --feats_size 32
                                                  # a quick CPU dry run
 
@@ -69,6 +72,8 @@ def main(argv=None) -> int:
     parser.add_argument("--feats_size", type=int, default=512)
     parser.add_argument("--num_classes", type=int, default=2)
     parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--model", default="dsmil",
+                        choices=["dsmil", "abmil", "meanpool", "maxpool"])
     args = parser.parse_args(argv)
 
     from tpumil_torch.models.dsmil import DSMILConfig
@@ -83,8 +88,10 @@ def main(argv=None) -> int:
     for n in args.sizes:
         feats = torch.from_numpy(
             rng.standard_normal((n, args.feats_size), np.float32)).to(dev)
-        for route, fused in (("kernel", True), ("eager", False)):
-            trainer = BagTrainer(cfg, weight_decay=1e-3, device=dev)
+        routes = (("kernel", True), ("eager", False))
+        for route, fused in routes if args.model == "dsmil" else routes[1:]:
+            trainer = BagTrainer(cfg, weight_decay=1e-3, model=args.model,
+                                 device=dev)
             model, opt = trainer.init(torch.Generator().manual_seed(0))
             gen = torch.Generator(device=dev).manual_seed(0)
             items = [(feats, label)]
@@ -98,8 +105,8 @@ def main(argv=None) -> int:
                 trainer._train_bags(model, opt, items * args.steps, fused, gen)
                 sync(dev)
             events = device_events(prof)
-            head = (f"[step] N={n} K={args.feats_size} C={args.num_classes} "
-                    f"{route} route: wall {wall * 1e3:.3f} ms/step over "
+            head = (f"[step] {args.model} N={n} K={args.feats_size} "
+                    f"C={args.num_classes} {route} route: wall {wall * 1e3:.3f} ms/step over "
                     f"{args.steps} steps")
             if not events:
                 log(f"{head}; device time not measured (no device events in "

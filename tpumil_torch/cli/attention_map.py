@@ -11,9 +11,10 @@ def load_milnet(embedder_weights: str, aggregator_weights: str,
                 num_classes: int, device: torch.device, norm: str = "instance",
                 backbone: str = "resnet18", precision: str = "f32",
                 space_to_depth: bool = False):
-    """Embedder by the positional surgery, aggregator from a reference-schema
-    ``.pth``, instance head overwritten from the aggregator's
-    ``i_classifier.fc.0.*`` (the reference's attention_map.py).
+    """Embedder by the positional surgery, aggregator from a ``.pth`` of any
+    registry schema, instance head overwritten from the aggregator's
+    ``i_classifier.fc.0.*`` (DSMIL) or ``i_classifier.fc.*`` (the others),
+    as the reference's attention_map.py does.
 
     ``precision`` defaults to f32: the shipped reference thresholds were
     derived from f32 torch inference. ``embedder_weights="ImageNet"`` gives
@@ -39,6 +40,8 @@ def load_milnet(embedder_weights: str, aggregator_weights: str,
         emb = embedder.init_params(0, emb_cfg, device)
     else:
         emb = embedder.load_simclr_checkpoint(embedder_weights, emb_cfg, device)
-    fc = agg.i_classifier.fc[0]
+    fc = agg.i_classifier.fc
+    if isinstance(fc, torch.nn.Sequential):
+        fc = fc[0]
     emb.set_head(fc.weight.detach(), fc.bias.detach())
     return emb, emb_cfg, agg, model_name

@@ -108,7 +108,7 @@ def main(argv=None) -> int:
         resume=args.resume, fold_state_every=args.fold_state_every or None,
         inst_shard=args.inst_shard, data_parallel=args.data_parallel,
         device=device)
-    # unported models and modes raise before any file is touched
+    # unknown models and unported modes raise before any file is touched
     schemes._make_trainer(cfg)
 
     if args.dataset == "TCGA-lung-default":

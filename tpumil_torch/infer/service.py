@@ -24,7 +24,6 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tpumil_torch.models.dsmil import DSMIL
 from tpumil_torch.models.embedder import Embedder
 
 
@@ -218,7 +217,8 @@ class MicroBatcher:
 
 
 class InferenceService:
-    """Embedder (+ optional DSMIL aggregator) behind a micro-batching queue.
+    """Embedder (+ optional aggregator of any registry model) behind a
+    micro-batching queue.
 
     ``embed`` / ``predict`` / ``predict_patches`` / ``heatmap`` are
     thread-safe; embedding work from all callers shares one fixed-shape
@@ -226,7 +226,7 @@ class InferenceService:
     """
 
     def __init__(self, embedder: Embedder, device: torch.device,
-                 aggregator: Optional[DSMIL] = None, model: str = "dsmil",
+                 aggregator: Optional[torch.nn.Module] = None, model: str = "dsmil",
                  batch_size: int = 128, patch_size: int = 224,
                  max_wait_ms: float = 8.0,
                  thresholds: Optional[Sequence[float]] = None,

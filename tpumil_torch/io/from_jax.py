@@ -3,7 +3,7 @@
 The JAX side is pytrees with numpy (or numpy-convertible) leaves; this
 module imports neither ``jax`` nor ``tpumil``. It lets the parity tests run
 both packages on the same weights and compare trained parameters leaf by
-leaf (:func:`dsmil_params`).
+leaf (:func:`mil_params`), for every registry model.
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ def dsmil_params(sd) -> Dict:
     """The reverse of :func:`dsmil_state_dict`: a ``DSMIL.state_dict`` ->
     the JAX package's parameter pytree with numpy leaves."""
     def a(key):
-        return sd[key].detach().cpu().numpy().astype(np.float32)
+        return _a(sd[key])
 
     params = {"i_fc": {"w": a("i_classifier.fc.0.weight"),
                        "b": a("i_classifier.fc.0.bias")},
@@ -89,3 +89,68 @@ def dsmil_params(sd) -> Dict:
         params["v"] = {"w": a("b_classifier.v.1.weight"),
                        "b": a("b_classifier.v.1.bias")}
     return params
+
+
+# (JAX group, leaf) of each ABMIL state_dict key, in the schema's order
+_ABMIL_KEYS = {
+    "i_classifier.fc.weight": ("i_fc", "w"), "i_classifier.fc.bias": ("i_fc", "b"),
+    "b_classifier.attention_v.weight": ("att_v", "w"),
+    "b_classifier.attention_v.bias": ("att_v", "b"),
+    "b_classifier.attention_u.weight": ("att_u", "w"),
+    "b_classifier.attention_u.bias": ("att_u", "b"),
+    "b_classifier.attention_w.weight": ("att_w", "w"),
+    "b_classifier.attention_w.bias": ("att_w", "b"),
+    "b_classifier.fc.weight": ("bag_fc", "w"), "b_classifier.fc.bias": ("bag_fc", "b"),
+}
+
+
+def _a(v) -> np.ndarray:
+    return v.detach().cpu().numpy().astype(np.float32)
+
+
+def abmil_state_dict(params: Dict) -> "collections.OrderedDict":
+    """``{i_fc, att_v, att_u, att_w, bag_fc}`` -> ``ABMIL.state_dict``."""
+    return collections.OrderedDict(
+        (key, _t(params[grp][leaf])) for key, (grp, leaf) in _ABMIL_KEYS.items())
+
+
+def abmil_params(sd) -> Dict:
+    """The reverse of :func:`abmil_state_dict`."""
+    params: Dict = {}
+    for key, (grp, leaf) in _ABMIL_KEYS.items():
+        params.setdefault(grp, {})[leaf] = _a(sd[key])
+    return params
+
+
+def poolmil_state_dict(params: Dict, model: str) -> "collections.OrderedDict":
+    """``{i_fc}`` -> the ``state_dict`` of ``MeanPool`` or ``MaxPool``
+    (``model`` names which: its ``pooling.mode`` is 0.0 or 1.0)."""
+    if model not in ("meanpool", "maxpool"):
+        raise ValueError(f"not a pooling model: {model!r}")
+    return collections.OrderedDict([
+        ("i_classifier.fc.weight", _t(params["i_fc"]["w"])),
+        ("i_classifier.fc.bias", _t(params["i_fc"]["b"])),
+        ("pooling.mode", torch.tensor(0.0 if model == "meanpool" else 1.0))])
+
+
+def poolmil_params(sd) -> Dict:
+    """The reverse of :func:`poolmil_state_dict` (the mode is the model's,
+    not a parameter)."""
+    return {"i_fc": {"w": _a(sd["i_classifier.fc.weight"]),
+                     "b": _a(sd["i_classifier.fc.bias"])}}
+
+
+def mil_state_dict(params: Dict, model: str) -> "collections.OrderedDict":
+    """The JAX parameters of registry model ``model`` -> its port module's
+    ``state_dict``."""
+    if model == "dsmil":
+        return dsmil_state_dict(params)
+    if model == "abmil":
+        return abmil_state_dict(params)
+    return poolmil_state_dict(params, model)
+
+
+def mil_params(sd, model: str) -> Dict:
+    """The reverse of :func:`mil_state_dict`."""
+    return {"dsmil": dsmil_params, "abmil": abmil_params}.get(
+        model, poolmil_params)(sd)

@@ -13,6 +13,13 @@ Some loaders see ``i_classifier.fc.{weight,bias}``; both spellings load.
 The port's ``DSMIL`` module has exactly these ``state_dict`` keys, in this
 order, so a checkpoint loads with ``strict=True`` and the module's
 ``state_dict`` is what :func:`save_mil_pth` writes.
+
+The other registry models have the JAX package's schemas:
+
+    ABMIL:     i_classifier.fc.{weight,bias}, b_classifier.attention_{v,u,w}.*,
+               b_classifier.fc.*
+    pooling:   i_classifier.fc.{weight,bias}, pooling.mode (0-d: 0.0 mean,
+               1.0 max)
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from typing import Mapping, Tuple, Union
 
 import torch
 
-from tpumil_torch.models.dsmil import DSMIL, DSMILConfig
+from tpumil_torch.models.dsmil import DSMILConfig
 from tpumil_torch.models.registry import get_model
 
 
@@ -62,33 +69,49 @@ def dsmil_config_from_state_dict(sd) -> DSMILConfig:
                        passing_v="b_classifier.v.1.weight" in sd)
 
 
-def load_mil_pth(path: str, device: torch.device) -> Tuple[DSMIL, DSMILConfig, str]:
-    """Load an aggregator checkpoint; returns ``(model in eval mode, cfg,
-    model name)``. Only the DSMIL schema is ported; the ABMIL and pooling
-    schemas raise NotImplementedError through the registry."""
-    sd = load_state_dict(path)
+def mil_schema(sd) -> str:
+    """The registry model a state_dict's keys belong to, in the JAX
+    package's detection order: ``pooling.mode`` (above 0.5: maxpool),
+    then ``b_classifier.attention_v.weight`` (abmil), else dsmil."""
     if "pooling.mode" in sd:
-        get_model("maxpool" if float(sd["pooling.mode"]) > 0.5 else "meanpool")
+        return "maxpool" if float(sd["pooling.mode"]) > 0.5 else "meanpool"
     if "b_classifier.attention_v.weight" in sd:
-        get_model("abmil")
-    sd = collections.OrderedDict(
-        (k.replace("i_classifier.fc.", "i_classifier.fc.0.")
-         if k in ("i_classifier.fc.weight", "i_classifier.fc.bias") else k, v)
-        for k, v in sd.items())
-    cfg = dsmil_config_from_state_dict(sd)
-    model = get_model("dsmil")(cfg, device)
+        return "abmil"
+    return "dsmil"
+
+
+def load_mil_pth(path: str, device: torch.device
+                 ) -> Tuple[torch.nn.Module, DSMILConfig, str]:
+    """Load an aggregator checkpoint of any registry schema; returns
+    ``(model in eval mode, cfg, model name)``. Loading is strict. Only the
+    DSMIL schema has two spellings of the instance head, so only its
+    ``i_classifier.fc.*`` keys are renamed to ``fc.0.*``."""
+    sd = load_state_dict(path)
+    name = mil_schema(sd)
+    if name == "dsmil":
+        sd = collections.OrderedDict(
+            (k.replace("i_classifier.fc.", "i_classifier.fc.0.")
+             if k in ("i_classifier.fc.weight", "i_classifier.fc.bias") else k,
+             v) for k, v in sd.items())
+        cfg = dsmil_config_from_state_dict(sd)
+    else:
+        num_classes, feats_size = sd["i_classifier.fc.weight"].shape
+        cfg = DSMILConfig(feats_size=int(feats_size),
+                          num_classes=int(num_classes))
+    model = get_model(name)(cfg, device)
     model.load_state_dict(sd, strict=True)
-    return model.eval(), cfg, "dsmil"
+    return model.eval(), cfg, name
 
 
-def save_mil_pth(params: Union[DSMIL, Mapping[str, torch.Tensor]], path: str,
-                 model: str = "dsmil") -> None:
-    """Write an aggregator checkpoint in the reference schema: f32 CPU
-    tensors under the module's ``state_dict`` keys, loadable by
-    :func:`load_mil_pth`, by the JAX package's loader and by the
-    reference. Only the DSMIL schema is ported."""
-    get_model(model)
+def save_mil_pth(params: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
+                 path: str, model: str = "dsmil") -> None:
+    """Write an aggregator checkpoint: f32 CPU tensors under the module's
+    ``state_dict`` keys, loadable by :func:`load_mil_pth` and by the JAX
+    package's loader (and, for DSMIL, by the reference). ``model`` must
+    name the schema the weights have."""
     sd = params.state_dict() if isinstance(params, torch.nn.Module) else params
-    torch.save(collections.OrderedDict(
-        (k, v.detach().to("cpu", torch.float32).contiguous().clone())
-        for k, v in sd.items()), path)
+    schema = mil_schema(sd)
+    if schema != model:
+        raise ValueError(f"weights of the {schema!r} schema cannot be saved "
+                         f"as model {model!r}")
+    save_state_dict(sd, path)

@@ -45,6 +45,12 @@ class DSMILConfig:
     dropout_v: float = 0.0
 
 
+def max_instance_logits(ins_logits: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``max_N`` of the instance stream (instance axis -2)."""
+    return masked_max(ins_logits, mask, dim=-2)
+
+
 class _IClassifier(nn.Module):
     def __init__(self, k: int, c: int, device):
         super().__init__()
@@ -77,7 +83,12 @@ class DSMIL(nn.Module):
     the JAX package's parameters (io/from_jax.dsmil_state_dict) or from
     :func:`init_params` / :func:`torch_default_init_params`. Built in eval
     mode; a trainer switches to ``train()`` for its steps, where value
-    dropout (``passing_v`` only) draws from the generator it passes."""
+    dropout (``passing_v`` only) draws from the generator it passes.
+
+    Every registry model (models/registry.py) has this constructor,
+    forward contract, ``init_params`` and ``max_instance_logits``."""
+
+    max_instance_logits = staticmethod(max_instance_logits)
 
     def __init__(self, cfg: DSMILConfig, device: torch.device):
         super().__init__()
@@ -86,6 +97,11 @@ class DSMIL(nn.Module):
                                          device)
         self.b_classifier = _BClassifier(cfg, device)
         self.eval()
+
+    @staticmethod
+    def init_params(generator: torch.Generator, cfg: DSMILConfig,
+                    device: Optional[torch.device] = None) -> "DSMIL":
+        return init_params(generator, cfg, device)
 
     def forward(self, feats: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 ins_logits: Optional[torch.Tensor] = None,
@@ -177,12 +193,6 @@ def torch_default_init_params(generator: torch.Generator, cfg: DSMILConfig,
                 u = torch.rand(param.shape, generator=generator)
                 _set(param, (2.0 * u - 1.0) * bound)
     return model
-
-
-def max_instance_logits(ins_logits: torch.Tensor,
-                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``max_N`` of the instance stream (instance axis -2)."""
-    return masked_max(ins_logits, mask, dim=-2)
 
 
 def bag_scores(model: DSMIL, feats: torch.Tensor,

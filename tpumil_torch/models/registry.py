@@ -1,22 +1,26 @@
-"""Aggregator model registry (counterpart of tpumil/models/registry.py).
+"""Aggregator model registry (counterpart of tpumil/models/registry.py):
+the reference's ``--model dsmil|abmil`` switch (train_tcga.py:224-227) plus
+the paper's max- and mean-pooling baselines.
 
-``get_model(name)`` returns the model class, built as ``cls(cfg, device)``.
-Only DSMIL is ported so far; the other names are known and raise."""
+``get_model(name)`` returns the model class. Each is built as
+``cls(cfg, device)``, has the forward contract ``model(feats, mask,
+ins_logits=..., dropout_generator=...) -> (ins_logits, bag_logits, A, B)``,
+and the static ``init_params(generator, cfg, device)`` and
+``max_instance_logits(ins_logits, mask)``."""
 
 from __future__ import annotations
 
+from tpumil_torch.models.abmil import ABMIL
 from tpumil_torch.models.dsmil import DSMIL
+from tpumil_torch.models.poolmil import MaxPool, MeanPool
 
-_MODELS = {"dsmil": DSMIL}
-_LATER = ("abmil", "meanpool", "maxpool")
+_MODELS = {"dsmil": DSMIL, "abmil": ABMIL, "meanpool": MeanPool,
+           "maxpool": MaxPool}
 
 
 def get_model(name: str):
-    if name in _MODELS:
+    try:
         return _MODELS[name]
-    if name in _LATER:
-        raise NotImplementedError(
-            f"MIL model {name!r} is not ported to tpumil_torch yet; it comes "
-            "with a later slice (ROADMAP.md, Queue 1)")
-    raise ValueError(f"unknown MIL model {name!r}; choose from "
-                     f"{sorted(_MODELS) + list(_LATER)}")
+    except KeyError:
+        raise ValueError(f"unknown MIL model {name!r}; choose from "
+                         f"{sorted(_MODELS)}") from None

@@ -25,7 +25,11 @@ Each wrapper runs its plain PyTorch version (``*_plain``, the unfused eager
 math) on a CPU tensor, and on a CUDA tensor launches its kernel or raises.
 ``TrainablePool`` is the ``torch.autograd.Function`` of
 ``make_trainable_pool``; ``fused_bag_loss`` and ``fused_bag_forward`` are the
-training loss and the eval forward of a DSMIL module through it.
+training loss and the eval forward of a DSMIL module through it. Those two
+take any feature width K and any bag view: the kernels read rows as 16-byte
+vectors, so a K that is not a multiple of 4 (166 for musk, 230 for
+elephant, fox and tiger) or a view that starts off a 16-byte boundary is
+zero-padded first (:func:`_aligned`).
 """
 
 from __future__ import annotations
@@ -349,6 +353,21 @@ def _instance_stream(model, feats, n_valid):
     return c_logits, mask, model.b_classifier.q(feats[crit])
 
 
+def _aligned(feats, w0):
+    """``(feats, W0)`` as the kernels read them: when K % 4 != 0 or feats
+    starts off a 16-byte boundary, copies with K zero-padded to the next
+    multiple of 4 in a fresh (aligned) tensor, else the inputs themselves.
+    Exact: the zero columns add nothing to z1 = f W0^T, and the callers cut
+    B's extra columns off before the bag head."""
+    k = feats.shape[1]
+    kp = -(-k // 4) * 4
+    if kp == k and feats.data_ptr() % 16 == 0:
+        return feats, w0
+    padded = feats.new_zeros((feats.shape[0], kp))
+    padded[:, :k] = feats
+    return padded, (w0 if kp == k else torch.nn.functional.pad(w0, (0, kp - k)))
+
+
 def fused_bag_loss(model, feats: torch.Tensor, label: torch.Tensor,
                    pos_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The dual-stream DSMIL loss of one unpadded bag with the attention
@@ -364,7 +383,9 @@ def fused_bag_loss(model, feats: torch.Tensor, label: torch.Tensor,
     n_valid = feats.shape[0]
     c_logits, mask, q_max = _instance_stream(model, feats, n_valid)
     w0, b0, w2, b2 = _q_weights(model)
-    bemb = TrainablePool.apply(feats, w0, b0, w2, b2, q_max, n_valid, True)
+    f, w0 = _aligned(feats, w0)
+    bemb = TrainablePool.apply(f, w0, b0, w2, b2, q_max, n_valid, True)
+    bemb = bemb[:, :feats.shape[1]]
     return dual_stream_loss(_bag_logits(model, bemb),
                             masked_max(c_logits, mask, dim=0), label,
                             pos_weight)
@@ -386,8 +407,10 @@ def fused_bag_forward(model, feats: torch.Tensor,
     with torch.no_grad():
         c_logits, mask, q_max = _instance_stream(model, feats, n_valid)
         w0, b0, w2, b2 = _q_weights(model)
-        bemb = attention_pool_fwd(feats, w0.detach(), b0.detach(),
+        f, w0 = _aligned(feats, w0.detach())
+        bemb = attention_pool_fwd(f, w0, b0.detach(),
                                   None if w2 is None else w2.detach(),
                                   None if b2 is None else b2.detach(),
                                   q_max, n_valid, model.cfg.nonlinear)[0]
+        bemb = bemb[:, :feats.shape[1]]
         return _bag_logits(model, bemb), masked_max(c_logits, mask, dim=0)

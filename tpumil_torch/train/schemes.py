@@ -1,12 +1,16 @@
-"""The three WSI evaluation schemes of train_tcga.py over precomputed
-feature bags (counterpart of tpumil/train/schemes.py): 5-fold-cv,
+"""Evaluation schemes (counterpart of tpumil/train/schemes.py): the
+classic-MIL k-fold CV of train_mil.py (``run_mil_cv``) and the three WSI
+schemes of train_tcga.py over precomputed feature bags, 5-fold-cv,
 5-time-train+valid+test and 5-fold-cv-standalone-test, with fold and
-iteration markers for ``--resume`` and mid-fold train state.
+iteration markers for ``--resume`` and mid-fold train state. Every scheme
+trains any registry model.
 
 Every host RNG stream is the JAX package's: the same seeds, the same
 draws, in the same order, so a run visits the same bags in the same order
 (torch's dropout streams differ from JAX's). The per-fold parameter init
-is drawn from ``torch.Generator().manual_seed(cfg.seed + fold)``.
+is drawn from ``torch.Generator().manual_seed(cfg.seed + fold)`` (WSI) or
+``manual_seed(cfg.seed + 1000 * fold)`` (``run_mil_cv``), where the JAX
+package draws from ``PRNGKey`` of the same number.
 """
 
 from __future__ import annotations
@@ -16,21 +20,136 @@ import json
 import os
 import pickle
 import shutil
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from tpumil_torch.data.bags import Bag
 from tpumil_torch.data.device_store import DeviceBagStore
+from tpumil_torch.data.mil_bench import (
+    compute_pos_weight,
+    cross_validation_split,
+    shuffle_with_class_coverage,
+)
 from tpumil_torch.io import native_ckpt, torch_ckpt
-from tpumil_torch.models.dsmil import DSMIL, DSMILConfig
+from tpumil_torch.models import dsmil
+from tpumil_torch.models.dsmil import DSMILConfig
+from tpumil_torch.models.registry import get_model
 from tpumil_torch.train import metrics
 from tpumil_torch.train.optim import cosine_annealing_lr
 from tpumil_torch.train.trainer import BagTrainer
 
 SCALE_OUT = ("comes with the scale-out slice of the port (ROADMAP.md, "
              "Queue 1); train on one device")
+
+
+# ---------------------------------------------------------------------------
+# Classic MIL benchmarks (train_mil.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MILBenchConfig:
+    num_feats: int
+    lr: float = 2e-4                  # train_mil.py:115
+    num_epochs: int = 40              # train_mil.py:116
+    cv_fold: int = 10                 # train_mil.py:117
+    weight_decay: float = 5e-3        # train_mil.py:118
+    seed: int = 0
+    verbose: bool = True
+    model: str = "dsmil"              # train_mil.py:119
+    # "orthogonal" (the framework's one init, train_tcga.py:229-233) or
+    # "torch_default" (nn.Linear/Conv1d defaults, what train_mil.py trains
+    # with; dsmil only)
+    init: str = "orthogonal"
+    # instance sharding over devices; not ported yet
+    inst_shard: int = 0
+    # None: the card; BagTrainer resolves it (and raises without one)
+    device: Optional[torch.device] = None
+
+
+def _make_mil_trainer(cfg: MILBenchConfig) -> BagTrainer:
+    """The one trainer of every fold; raises on an unknown ``init``, on
+    ``torch_default`` for a model other than dsmil, and on ``inst_shard``,
+    before any data moves."""
+    if cfg.init not in ("orthogonal", "torch_default"):
+        # a typo ("torch-default", "default") must not silently measure
+        # orthogonal init under the wrong name
+        raise ValueError(f"init must be 'orthogonal' or 'torch_default', "
+                         f"got {cfg.init!r}")
+    if cfg.init == "torch_default" and cfg.model != "dsmil":
+        raise ValueError(
+            f"init='torch_default' is only implemented for model='dsmil' "
+            f"(got {cfg.model!r}); use init='orthogonal'")
+    if cfg.inst_shard:
+        raise NotImplementedError(f"inst_shard {SCALE_OUT}")
+    return BagTrainer(DSMILConfig(feats_size=cfg.num_feats, num_classes=1),
+                      weight_decay=cfg.weight_decay, model=cfg.model,
+                      device=cfg.device)
+
+
+def run_mil_cv(bags: List[Bag], cfg: MILBenchConfig,
+               log: Callable[[str], None] = print,
+               permutation: Optional[Sequence[int]] = None,
+               ) -> Tuple[float, float, List[float]]:
+    """k-fold CV on a classic MIL dataset (train_mil.py:164-187). Per fold:
+    a fresh model, Adam with the fold's pos_weight'd BCE, cosine LR to 0,
+    the best epoch accuracy kept. Returns (mean_acc, std_acc,
+    per_fold_accs).
+
+    The bags are shuffled until every test split holds a positive bag, or
+    put in the order of ``permutation``; the folds are contiguous chunks of
+    that order, and every epoch visits one fixed post-split order
+    (``shuffle=False``), as the reference's epoch_train does. The
+    reference's per-epoch shuffle of each bag's instance rows is omitted:
+    every registry model is invariant to it."""
+    trainer = _make_mil_trainer(cfg)
+    rng = np.random.default_rng(cfg.seed)
+    if permutation is not None:
+        if sorted(permutation) != list(range(len(bags))):
+            raise ValueError("permutation must be a permutation of range(n_bags)")
+        bags = [bags[i] for i in permutation]
+    else:
+        bags = shuffle_with_class_coverage(list(bags), cfg.cv_fold, rng)
+    lr_of = cosine_annealing_lr(cfg.lr, cfg.num_epochs, 0.0)
+    accs = []
+    indices = list(range(len(bags)))
+    # the dataset moves to the device once; folds are device gathers
+    store = _device_store(bags, trainer)
+    for k in range(cfg.cv_fold):
+        tr_idx, te_idx = cross_validation_split(indices, cfg.cv_fold, k)
+        trainer.pos_weight = np.asarray(
+            [compute_pos_weight([bags[i] for i in tr_idx])], np.float32)
+        generator = torch.Generator().manual_seed(cfg.seed + 1000 * k)
+        if cfg.init == "torch_default":
+            net = dsmil.torch_default_init_params(generator, trainer.cfg,
+                                                  trainer.device)
+            opt = trainer.make_optimizer(net)
+        else:
+            net, opt = trainer.init(generator)
+        best_acc = 0.0
+        labels = np.asarray([float(bags[i].label[0]) for i in te_idx])
+        train_bags, test_bags = _fold_views(store, bags, tr_idx, te_idx)
+        for epoch in range(cfg.num_epochs):
+            net, opt, train_loss = trainer.train_epoch(
+                net, opt, train_bags, lr_of(epoch), rng, shuffle=False)
+            scores, losses = trainer.predict(net, test_bags)
+            acc, auc, prec, rec, f1 = metrics.five_scores(labels, scores[:, 0])
+            best_acc = max(best_acc, acc)
+            if cfg.verbose:
+                log(f" fold {k} epoch {epoch + 1}/{cfg.num_epochs} "
+                    f"train_loss {train_loss:.4f} test_loss {float(np.mean(losses)):.4f} "
+                    f"acc {acc:.4f} auc {auc:.4f} p {prec:.4f} r {rec:.4f} f1 {f1:.4f}")
+        log(f" fold {k} optimal accuracy: {best_acc:.4f}")
+        accs.append(best_acc)
+    mean, std = float(np.mean(accs)), float(np.std(accs))
+    log(f"Cross validation accuracy mean: {mean:.4f}, std {std:.4f}")
+    return mean, std, accs
+
+
+# ---------------------------------------------------------------------------
+# WSI schemes (train_tcga.py)
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
@@ -84,17 +203,18 @@ def _make_trainer(cfg: WSITrainConfig) -> BagTrainer:
                       device=cfg.device)
 
 
-def _snapshot(model: DSMIL) -> Dict[str, torch.Tensor]:
+def _snapshot(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def _load(trainer: BagTrainer, params: Dict[str, torch.Tensor]) -> DSMIL:
-    model = DSMIL(trainer.cfg, trainer.device)
+def _load(trainer: BagTrainer, params: Dict[str, torch.Tensor]
+          ) -> torch.nn.Module:
+    model = get_model(trainer.model)(trainer.cfg, trainer.device)
     model.load_state_dict(params, strict=True)
     return model
 
 
-def evaluate_bags(trainer: BagTrainer, model: DSMIL, bags,
+def evaluate_bags(trainer: BagTrainer, model: torch.nn.Module, bags,
                   cfg: WSITrainConfig, thresholds: Optional[List[float]] = None,
                   rng: Optional[np.random.Generator] = None):
     """The reference's ``test()``: scores, AUCs, optimal (or given)
@@ -247,15 +367,17 @@ def train_fold(trainer: BagTrainer, train_bags, test_bags,
     return best
 
 
-def _global_store(bags, cfg: WSITrainConfig, trainer: BagTrainer):
+def _device_store(bags, trainer: BagTrainer) -> DeviceBagStore:
     """One device-resident store of the whole dataset; splits are device
     gathers (DeviceBagStore.subset). The trainer's "auto" route counts it
     as resident beside every split it trains."""
-    if not cfg.use_device_store:
-        return None
     store = DeviceBagStore(bags, device=trainer.device)
     trainer.extra_resident_bytes = store.nbytes()
     return store
+
+
+def _global_store(bags, cfg: WSITrainConfig, trainer: BagTrainer):
+    return _device_store(bags, trainer) if cfg.use_device_store else None
 
 
 def _fold_views(store, bags, tr_idx, te_idx):

@@ -1,5 +1,6 @@
-"""Per-bag trainer of the DSMIL aggregator (counterpart of
-tpumil/train/trainer.py).
+"""Per-bag trainer of the MIL aggregators (counterpart of
+tpumil/train/trainer.py): any registry model (models/registry.py), with
+the dual-stream objective on its bag logits and its max instance logit.
 
 One Adam step per bag, in the order the host RNG draws: the reference's
 optimization (train_tcga.py:55-76). Bags run unpadded and eagerly, one
@@ -13,8 +14,9 @@ seeds the ``torch.Generator`` of patch and value dropout). With dropout off
 the two trainers take the same steps in the same order from the same
 parameters.
 
-Giant bags route to the streaming kernels K1-K3 (ops/attention_pool.py),
-which keep no [N, D] activation. ``fused_threshold`` decides per bucket, as
+Giant DSMIL bags route to the streaming kernels K1-K3
+(ops/attention_pool.py, at any feature width), which keep no [N, D]
+activation. ``fused_threshold`` decides per bucket, as
 ``_use_fused`` does in the JAX package. K3 writes the feature gradient only
 when feats need one, and bag features are constants here, so the kernel
 step holds K3's dz1 scratch (4 D bytes per instance) and K1's logits (4 C
@@ -32,8 +34,7 @@ import torch
 
 from tpumil_torch.data.bags import Bag, bucketed_chunks
 from tpumil_torch.data.device_store import DeviceBagStore
-from tpumil_torch.models import dsmil
-from tpumil_torch.models.dsmil import DSMIL, DSMILConfig
+from tpumil_torch.models.dsmil import DSMILConfig
 from tpumil_torch.models.registry import get_model
 from tpumil_torch.ops.attention_pool import fused_bag_forward, fused_bag_loss
 from tpumil_torch.ops.losses import dual_stream_loss
@@ -96,7 +97,7 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class BagTrainer:
-    """Per-bag DSMIL trainer.
+    """Per-bag trainer of registry model ``model``.
 
     Usage:
         trainer = BagTrainer(cfg, device=torch.device("cuda"))
@@ -128,7 +129,7 @@ class BagTrainer:
     device: Optional[torch.device] = None
 
     def __post_init__(self):
-        get_model(self.model)  # unported models raise here
+        self._mil = get_model(self.model)  # unknown names raise here
         if self.device is None:
             self.device = select_device("cuda")
         self._fused_eligible = (
@@ -174,14 +175,15 @@ class BagTrainer:
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def init(self, generator: torch.Generator) -> Tuple[DSMIL, torch.optim.Adam]:
-        model = dsmil.init_params(generator, self.cfg, self.device)
+    def init(self, generator: torch.Generator
+             ) -> Tuple[torch.nn.Module, torch.optim.Adam]:
+        model = self._mil.init_params(generator, self.cfg, self.device)
         return model, self.make_optimizer(model)
 
-    def make_optimizer(self, model: DSMIL) -> torch.optim.Adam:
+    def make_optimizer(self, model: torch.nn.Module) -> torch.optim.Adam:
         return adam_torch(model.parameters(), weight_decay=self.weight_decay)
 
-    def _train_bags(self, model: DSMIL, opt: torch.optim.Optimizer,
+    def _train_bags(self, model: torch.nn.Module, opt: torch.optim.Optimizer,
                     items: Iterable[Tuple[torch.Tensor, torch.Tensor]],
                     fused: bool, generator: torch.Generator) -> torch.Tensor:
         """One Adam step per (feats, label); returns the sum of the losses
@@ -202,14 +204,15 @@ class BagTrainer:
                 c, bag_logits, _, _ = model(feats, mask,
                                             dropout_generator=generator)
                 loss = dual_stream_loss(
-                    bag_logits, dsmil.max_instance_logits(c, mask), label, pw)
+                    bag_logits, self._mil.max_instance_logits(c, mask), label,
+                    pw)
             loss.backward()
             opt.step()
             total = total + loss.detach()
         model.eval()
         return total
 
-    def _eval_bags(self, model: DSMIL,
+    def _eval_bags(self, model: torch.nn.Module,
                    items: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                    fused: bool, generator: torch.Generator
                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -228,7 +231,7 @@ class BagTrainer:
                             generator, feats.shape[0],
                             1.0 - self.dropout_patch, self.device)
                     c, bag_logits, _, _ = model(feats, mask)
-                    max_logits = dsmil.max_instance_logits(c, mask)
+                    max_logits = self._mil.max_instance_logits(c, mask)
                 loss = dual_stream_loss(bag_logits, max_logits, label, pw)
                 scores = torch.sigmoid(bag_logits)
                 out.append(torch.cat([loss[None], scores,
@@ -239,9 +242,10 @@ class BagTrainer:
 
     # -- public API ------------------------------------------------------------
 
-    def train_epoch(self, model: DSMIL, opt: torch.optim.Optimizer, bags,
-                    lr: float, rng: np.random.Generator, *,
-                    shuffle: bool = True) -> Tuple[DSMIL, object, float]:
+    def train_epoch(self, model: torch.nn.Module,
+                    opt: torch.optim.Optimizer, bags, lr: float,
+                    rng: np.random.Generator, *, shuffle: bool = True
+                    ) -> Tuple[torch.nn.Module, object, float]:
         """One epoch of per-bag steps; ``bags`` is a Sequence[Bag] (features
         moved per chunk) or a DeviceBagStore. Returns (model, optimizer,
         mean loss)."""
@@ -291,7 +295,7 @@ class BagTrainer:
                 model, opt, self._store_items(store, rows), fused, generator))
         return losses
 
-    def train_epochs(self, model: DSMIL, opt: torch.optim.Optimizer,
+    def train_epochs(self, model: torch.nn.Module, opt: torch.optim.Optimizer,
                      store: DeviceBagStore, lrs: Sequence[float],
                      rng: np.random.Generator):
         """``len(lrs)`` epochs over a store; returns (model, optimizer,
@@ -319,7 +323,7 @@ class BagTrainer:
         return model, opt, np.asarray([_mean(ls, store.num_bags)
                                        for ls in per_epoch], np.float64)
 
-    def predict(self, model: DSMIL, bags, *, average: bool = False,
+    def predict(self, model: torch.nn.Module, bags, *, average: bool = False,
                 rng: Optional[np.random.Generator] = None,
                 ) -> Tuple[np.ndarray, np.ndarray]:
         """Scores [num_bags, C] and losses [num_bags], in bag order. With
