@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, training (WSI and classic MIL) and
-feature-extraction paths once on one CUDA card (sm_90a).
+"""Drive the PyTorch port's serving, training (WSI and classic MIL),
+feature-extraction and slide-streaming paths once on one CUDA card (sm_90a).
 
     python3 chip_smoke.py
 
@@ -42,6 +42,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   python -m tpumil_torch.cli.compute_feats --device cuda,
                   compute_feats in-process with the stem in K5 and, in
                   turns, in the conv route, then train_wsi on the CSVs
+ 13. slide_feats -- two synthetic 3-level pyramidal TIFFs at 20x (4480^2,
+                  400 tiles of 224^2 each, textured tissue over ~60%):
+                  python -m tpumil_torch.cli.tiler and python -m
+                  tpumil_torch.cli.slide_feats --device cuda, the same tile
+                  set per slide; then embed_slide_streaming in-process with
+                  K5/K4 launches counted (1 and 19 per batch), its features
+                  against embed_arrays of the same tiles read back, the
+                  padded batch included; tiles/s, slides/min, the device's
+                  busy share, the reader and the edge filter
 Then one JSON line of kernel results (each with its bound: the larger of
 its bytes over the memory rate and its operations over the peak rate of
 their type) and, last, the device JSON line.
@@ -96,6 +105,9 @@ TRAIN_N = [1500, 4000, 9000, 20000, 40000, 65529]
 TRAIN_EPOCHS = 3
 # the compute_feats tree: classes x bags per class x patches of 224^2
 CF_CLASSES, CF_BAGS, CF_PATCHES = 2, 3, 256
+# the slide_feats slides: one per class, side^2 at 20x, tissue share of the
+# area
+SF_CLASSES, SF_SIDE, SF_TISSUE = 2, 4480, 0.6
 # H100 SXM published peaks at 700 W (NVIDIA's data sheet, dense): memory
 # bytes/s, and flop/s by operand type (f32 on the CUDA cores, bf16 on the
 # tensor cores)
@@ -1281,6 +1293,146 @@ def phase_compute_feats(gpu: str) -> int:
     return k5
 
 
+def read_pos_csv(path: str):
+    rows = np.loadtxt(path, dtype=int, delimiter=",", skiprows=1, ndmin=2)
+    return {(int(c), int(r)) for c, r in rows}
+
+
+def phase_slide_feats(gpu: str) -> None:
+    """The slide front end: the tiler and slide_feats CLIs a user runs on
+    the same slides, then the stream in-process with K5/K4 launches
+    counted and its features held against direct embedding."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpumil_torch.data.feature_store import read_bag_csv, read_master_csv
+    from tpumil_torch.data.patches import list_patches, parse_position
+    from tpumil_torch.data.slide import DeepZoom, magnification_plan, open_slide
+    from tpumil_torch.data.tiler import TilerConfig
+    from tpumil_torch.infer.features import FeatureExtractor
+    from tpumil_torch.infer.stream_embed import embed_slide_streaming
+    from tpumil_torch.models import embedder
+    from tpumil_torch.ops.instance_norm import fused_instance_norm
+    from tpumil_torch.ops.stem import fused_stem
+    from tpumil_torch.utils import native
+    from tools.serve_profile import busy_us, device_events
+    from tools.stream_profile import synth_slide, write_slide
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        slides = []
+        for c in range(SF_CLASSES):
+            path = os.path.join(tmp, "WSI", "sf", f"class{c}", f"slide{c}.tif")
+            write_slide(path, synth_slide(SF_SIDE, SF_TISSUE, 11 + c),
+                        tiled=False)
+            slides.append(path)
+        reader = type(open_slide(slides[0])).__name__
+        edge = "native" if native.available() else "PIL"
+        model = embedder.init_params(0, embedder.EmbedderConfig(),
+                                     torch.device("cpu"))
+        torch.save(embedder.export_embedder_state_dict(model),
+                   os.path.join(tmp, "model.pth"))
+
+        t0 = time.perf_counter()
+        run_cli("tpumil_torch.cli.tiler", ["-d", "sf", "-v", "tif"], tmp)
+        tiler_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = run_cli("tpumil_torch.cli.slide_feats",
+                      ["--device", "cuda", "--dataset", "sf",
+                       "--slide_format", "tif", "--weights", "model.pth"], tmp)
+        cli_wall = time.perf_counter() - t0
+        feats_root = os.path.join(tmp, "datasets", "sf")
+        master = read_master_csv(os.path.join(feats_root, "sf.csv"))
+        if len(master) != SF_CLASSES:
+            raise AssertionError(f"master CSV has {len(master)} rows")
+        n_total, kept = 0, []
+        for c, path in enumerate(slides):
+            bag = os.path.join(f"class{c}", f"slide{c}")
+            folder = {parse_position(p) for p in list_patches(
+                os.path.join(tmp, "WSI", "sf", "single", bag))}
+            streamed = read_pos_csv(os.path.join(feats_root, bag + ".pos.csv"))
+            csv = read_bag_csv(os.path.join(feats_root, bag + ".csv"))
+            if streamed != folder or csv.shape != (len(folder), 512):
+                raise AssertionError(
+                    f"{bag}: the tiler kept {len(folder)} tiles, the stream "
+                    f"{len(streamed)} ({len(folder ^ streamed)} differ), CSV "
+                    f"{csv.shape}")
+            n_total += (SF_SIDE // 224) ** 2
+            kept.append(len(folder))
+        log(f"[slide_feats] {SF_CLASSES} slides {SF_SIDE}^2 at 20x, "
+            f"{(SF_SIDE // 224) ** 2} tiles of 224^2 each, reader {reader}, "
+            f"edge filter {edge}: python -m tpumil_torch.cli.tiler exit 0 in "
+            f"{tiler_wall:.2f} s ({n_total / tiler_wall:.1f} tiles/s); python "
+            f"-m tpumil_torch.cli.slide_feats --device cuda (f32, batch {B}) "
+            f"exit 0 in {cli_wall:.2f} s = {n_total / cli_wall:.1f} tiles/s, "
+            f"{SF_CLASSES * 60.0 / cli_wall:.3f} slides/min, start-up "
+            f"included; kept {kept} tiles, the same set as the tiler's "
+            f"folders per slide; {gpu}")
+
+        # in-process, from the CLI's embedder and configuration
+        ex = FeatureExtractor(embedder.load_simclr_checkpoint(
+            os.path.join(tmp, "model.pth"),
+            embedder.EmbedderConfig(num_classes=1, space_to_depth=True), dev),
+            B, 224)
+        ex.embed_arrays(np.zeros((B, 224, 224, 3), np.uint8))  # warm-up
+        cfg = TilerConfig()
+        torch.cuda.synchronize()
+        fused_stem.launches = fused_instance_norm.launches = 0
+        t0 = time.perf_counter()
+        feats, pos, stats = embed_slide_streaming(slides[0], ex, (0,), cfg, B)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k5, k4 = fused_stem.launches, fused_instance_norm.launches
+        batches = -(-stats.tiles_kept // B)
+        if stats.tiles_kept % B == 0 or (k5, k4) != (batches, 19 * batches):
+            raise AssertionError(f"{stats.tiles_kept} tiles kept in {batches} "
+                                 f"batches: K5/K4 launches {(k5, k4)}, want "
+                                 f"{(batches, 19 * batches)}, a padded batch")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            embed_slide_streaming(slides[0], ex, (0,), cfg, B)
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t0
+        events = device_events(prof)
+        busy = (f"{busy_us(events) / 1e6 / traced * 100:.1f}% of the traced "
+                f"wall {traced:.3f} s" if events else "not measured (no "
+                "device events in the trace)")
+
+        # the same tiles read back, embedded directly in batches of B
+        slide = open_slide(slides[0])
+        dz = DeepZoom(slide, cfg.tile_size)
+        (level, _), = magnification_plan(dz, (0,), cfg.base_mag,
+                                         cfg.objective)
+        tiles = np.stack([dz.get_tile(level, tuple(p)) for p in pos])
+        slide.close()
+        n = len(tiles)
+        tiles = np.concatenate([tiles, np.zeros((batches * B - n, 224, 224, 3),
+                                                np.uint8)])
+        direct = np.concatenate([ex.embed_arrays(tiles[i:i + B])
+                                 for i in range(0, len(tiles), B)])
+        if not np.isfinite(direct).all() or np.any(direct[n:] != 0):
+            raise AssertionError("zero padding tiles gave non-zero features")
+        if feats.shape != (n, 512) or not np.isfinite(feats).all():
+            raise AssertionError(f"bad streamed features {feats.shape}")
+        np.testing.assert_allclose(feats, direct[:n], rtol=1e-4, atol=1e-4)
+        csv = read_bag_csv(os.path.join(feats_root, "class0", "slide0.csv"))
+        np.testing.assert_allclose(csv, feats, rtol=0, atol=1.5e-4)
+        log(f"[slide_feats] in-process embed_slide_streaming (f32, batch "
+            f"{B}, {cfg.workers} fetch threads): {stats.tiles_kept}/"
+            f"{stats.tiles_total} tiles kept in {batches} batches (the last "
+            f"padded by {batches * B - n}), K5/K4 launches {k5}/{k4} (1/19 "
+            f"per batch); {wall:.3f} s = {stats.tiles_total / wall:.1f} "
+            f"tiles/s, {60.0 / wall:.3f} slides/min; device busy {busy}; "
+            f"producer: reads {stats.fetch_seconds:.3f} s over the threads, "
+            f"filter {stats.filter_seconds:.3f} s, resize "
+            f"{stats.resize_seconds:.3f} s; {gpu}")
+        log(f"[slide_feats] streamed vs embed_arrays of the tiles read back "
+            f"(padded batch included): max_abs_err "
+            f"{np.abs(feats - direct[:n]).max():.3e} (atol 1e-4, rtol 1e-4); "
+            f"the CLI's CSV vs in-process {np.abs(csv - feats).max():.1e} "
+            f"(atol 1.5e-4); padding rows exactly 0")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1297,6 +1449,7 @@ def main() -> int:
     phase_train_mil(gpu)
     stem = phase_stem(gpu)[torch.float32]
     k5_launches = phase_compute_feats(gpu)
+    phase_slide_feats(gpu)
     kernels = [{
         "name": "fused_instance_norm", "route": "cuda",
         "source": "tpumil_torch/csrc/instance_norm.cu",

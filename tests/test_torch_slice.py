@@ -116,7 +116,13 @@ _PORT_MODULES = [
     "tpumil_torch.data.patches", "tpumil_torch.infer.features",
     "tpumil_torch.cli.compute_feats", "chip_smoke", "tools.serve_profile",
     "tools.train_profile", "tools.extract_profile", "tools.in_sweep",
-    "tools.k3_accuracy", "tools.stem_profile",
+    "tools.k3_accuracy", "tools.stem_profile", "tpumil_torch.data.slide",
+    "tpumil_torch.data.tiler", "tpumil_torch.cli.tiler",
+    "tpumil_torch.cli.crop_single", "tpumil_torch.infer.stream_embed",
+    "tpumil_torch.cli.slide_feats", "tools.stream_profile",
+    "tpumil_torch.cli.train_mil", "tpumil_torch.data.mil_bench",
+    "tpumil_torch.models.abmil", "tpumil_torch.models.poolmil",
+    "tpumil_torch.models.milnet", "tools.mil_profile",
 ]
 # not installed beside the card (sklearn, optax, orbax, pandas), or the
 # package the port replaces

@@ -6,7 +6,9 @@ tpumil/infer/features.py).
   * host JPEG decode runs in a prefetching thread pool (``PatchBatchLoader``)
     while the device computes, and up to two batches stay in flight: their
     host buffers are pinned (on a CUDA device) and copied without blocking,
-    and their features stay on the device until popped;
+    and their features stay on the device until popped (``launch`` starts
+    one such batch; ``embed_arrays`` embeds an in-memory batch, and
+    ``infer/stream_embed.py`` streams slides through ``launch``);
   * tree (multi-magnification) mode batches all high-magnification patches
     of a bag together;
   * the per-bag CSVs keep the reference's ``%.4f`` format.
@@ -62,30 +64,46 @@ class FeatureExtractor:
         self.num_workers = num_workers
         self.stats = ExtractorStats()
 
+    def launch(self, batch: np.ndarray):
+        """Start the forward of one host batch [n, T, T, 3] (uint8, or float
+        in [0, 1]). Returns its features [n, K] on the device and the host
+        tensor it was copied from, which the caller keeps until the features
+        are read: on a CUDA device the copy is pinned and does not block."""
+        if batch.dtype != np.uint8:
+            batch = batch.astype(np.float32, copy=False)
+        # pin_memory needs a CUDA build and device; the CPU path copies
+        # nothing
+        pin = self.device.type == "cuda"
+        host = torch.from_numpy(np.ascontiguousarray(batch))
+        if pin:
+            host = host.pin_memory()
+        with torch.inference_mode():
+            feats, _ = self.model(host.to(self.device, non_blocking=pin))
+        return feats, host
+
+    def embed_arrays(self, batch: np.ndarray) -> np.ndarray:
+        """Features [n, K] of a uint8 or float [n, T, T, 3] batch, computed
+        on the extractor's device; uint8 crosses the bus as uint8 and is
+        divided by 255 there."""
+        feats, _host = self.launch(batch)
+        return feats.cpu().numpy()
+
     def embed_paths(self, paths: Sequence[str]) -> np.ndarray:
         """Features [N, K] for a list of patch files (order preserved)."""
         if not paths:
             return np.zeros((0, self.cfg.num_feats), np.float32)
         loader = patch_data.PatchBatchLoader(
             paths, self.batch_size, self.patch_size, self.num_workers)
-        # pin_memory needs a CUDA build and device; the CPU path copies
-        # nothing
-        pin = self.device.type == "cuda"
         outs: List[np.ndarray] = []
-        pending = []  # (features on the device, n_valid)
+        pending = []  # (features on the device, n_valid, host batch)
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            for batch, n_valid, _ in loader:
-                host = torch.from_numpy(batch)
-                if pin:
-                    host = host.pin_memory()
-                feats, _ = self.model(host.to(self.device, non_blocking=pin))
-                pending.append((feats, n_valid))
-                if len(pending) > IN_FLIGHT:
-                    f, n = pending.pop(0)
-                    outs.append(f[:n].cpu().numpy())
-            for f, n in pending:
+        for batch, n_valid, _ in loader:
+            pending.append((*self.launch(batch), n_valid))
+            if len(pending) > IN_FLIGHT:
+                f, _, n = pending.pop(0)
                 outs.append(f[:n].cpu().numpy())
+        for f, _, n in pending:
+            outs.append(f[:n].cpu().numpy())
         self.stats.seconds += time.perf_counter() - t0
         self.stats.patches += len(paths)
         return np.concatenate(outs, axis=0)

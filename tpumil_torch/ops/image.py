@@ -1,7 +1,7 @@
-"""Host-side image ops for heatmaps (copy of the pieces of
-tpumil/ops/image.py the serving path uses): intensity rescaling, order-0
-integer upscaling and ubyte conversion, in numpy, replacing the reference's
-skimage calls."""
+"""Host-side image ops (copy of tpumil/ops/image.py): intensity rescaling,
+order-0 integer upscaling and ubyte conversion for heatmaps, and the HSV
+saturation of crop_single's tissue filter, in numpy, replacing the
+reference's skimage calls."""
 
 from __future__ import annotations
 
@@ -29,3 +29,18 @@ def img_as_ubyte(image: np.ndarray) -> np.ndarray:
     """Float [0,1] -> uint8 (skimage rounding)."""
     return np.clip(np.rint(np.asarray(image, np.float64) * 255.0), 0,
                    255).astype(np.uint8)
+
+
+def rgb_to_saturation(image: np.ndarray) -> np.ndarray:
+    """The S channel of HSV for an RGB uint8/float image: S = (max - min) /
+    max, 0 where max is 0 (scale invariant, so uint8 needs no rescale)."""
+    img = np.asarray(image, dtype=np.float64)
+    mx = img.max(axis=-1)
+    mn = img.min(axis=-1)
+    return np.where(mx > 0, (mx - mn) / np.maximum(mx, 1e-12), 0.0)
+
+
+def mean_saturation_ubyte(image: np.ndarray) -> float:
+    """Mean of the ubyte-scaled saturation channel (``img_as_ubyte(sat)``
+    then mean)."""
+    return float(np.mean(img_as_ubyte(rgb_to_saturation(image))))
