@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving, training (WSI and classic MIL),
-feature-extraction and slide-streaming paths once on one CUDA card (sm_90a).
+feature-extraction, slide-streaming and inference-and-heatmap paths once on
+one CUDA card (sm_90a).
 
     python3 chip_smoke.py
 
@@ -51,6 +52,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   against embed_arrays of the same tiles read back, the
                   padded batch included; tiles/s, slides/min, the device's
                   busy share, the reader and the edge filter
+ 14. attention_map -- a folder of 3 bags of 600, 1000 and 130 JPEG patches
+                  of 224^2 on tile grids with holes: python -m
+                  tpumil_torch.cli.attention_map (TCGA aggregator, f32,
+                  --export_scores 1 --seed 0), testing_tcga, testing_c16 and
+                  attention_map --precision bf16, all --device cuda, a PNG
+                  per bag each; then run_attention_maps in-process with
+                  K5/K4 launches counted (1 and 19 per batch of 64), each
+                  bag's BagInference against embed_paths plus the
+                  aggregator and the 130-patch bag against the port's CPU
+                  path; patches/s per bag, the device's busy share, the wall
+                  split into decode and embed, aggregate, render, PNG, CSV
 Then one JSON line of kernel results (each with its bound: the larger of
 its bytes over the memory rate and its operations over the peak rate of
 their type) and, last, the device JSON line.
@@ -65,6 +77,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -108,6 +121,9 @@ CF_CLASSES, CF_BAGS, CF_PATCHES = 2, 3, 256
 # the slide_feats slides: one per class, side^2 at 20x, tissue share of the
 # area
 SF_CLASSES, SF_SIDE, SF_TISSUE = 2, 4480, 0.6
+# the attention_map bags (patches each; every last batch of 64 ragged) and
+# the CLIs' batch
+AM_BAGS, AM_BATCH = (600, 1000, 130), 64
 # H100 SXM published peaks at 700 W (NVIDIA's data sheet, dense): memory
 # bytes/s, and flop/s by operand type (f32 on the CUDA cores, bf16 on the
 # tensor cores)
@@ -1433,6 +1449,220 @@ def phase_slide_feats(gpu: str) -> None:
             f"(atol 1.5e-4); padding rows exactly 0")
 
 
+def verdicts(out: str):
+    return [l.split(" is detected as")[1] for l in out.splitlines()
+            if " is detected as" in l]
+
+
+def phase_attention_map(gpu: str) -> None:
+    """The inference-and-heatmap path: the three CLIs a user runs on the
+    card, then run_attention_maps in-process with K5/K4 launches counted,
+    held against embed_paths plus the aggregator and the CPU path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpumil_torch.cli.attention_map import load_milnet
+    from tpumil_torch.data.patches import list_patches
+    from tpumil_torch.infer.heatmap import (BagInference, HeatmapStats,
+                                            run_attention_maps)
+    from tpumil_torch.models import embedder
+    from tpumil_torch.ops.instance_norm import fused_instance_norm
+    from tpumil_torch.ops.stem import fused_stem
+    from tools.heatmap_profile import CLASSES, THRESHOLDS, write_bag
+    from tools.serve_profile import busy_us, device_events
+
+    dev = torch.device("cuda")
+    tcga = os.path.join(REPO, "tests", "data", "tcga_aggregator.pth")
+    c16 = os.path.join(REPO, "tests", "data", "c16_aggregator.pth")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "patches")
+        bags = [os.path.join(root, f"slide{i}") for i in range(len(AM_BAGS))]
+        sides = [write_bag(d, n, 224, 20 + i, holes=True)
+                 for i, (d, n) in enumerate(zip(bags, AM_BAGS))]
+        src = embedder.init_params(0, embedder.EmbedderConfig(),
+                                   torch.device("cpu"))
+        emb_path = os.path.join(tmp, "embedder.pth")
+        torch.save(embedder.export_embedder_state_dict(src), emb_path)
+        n_total = sum(AM_BAGS)
+
+        common = ["--device", "cuda", "--embedder_weights", emb_path,
+                  "--bag_path", root]
+        am = ["--aggregator_weights", tcga, "--thres", *map(str, THRESHOLDS),
+              "--class_name", *CLASSES, "--export_scores", "1", "--seed", "0"]
+        # each run: the CLI (and its extra flags), its arguments, the folders
+        # it must fill, one file per bag
+        runs = {
+            "attention_map": (am + ["--map_path", "am", "--score_path",
+                                    "am_scores"], ("am", "am_scores")),
+            "testing_tcga": (["--aggregator_weights", tcga, "--output",
+                              "tcga"], ("tcga",)),
+            "testing_c16": (["--aggregator_weights", c16, "--output", "c16"],
+                            ("c16",)),
+            "attention_map --precision bf16": (am + [
+                "--precision", "bf16", "--map_path", "bf16", "--score_path",
+                "bf16_scores"], ("bf16", "bf16_scores")),
+        }
+        outs, walls = {}, {}
+
+        def timed(name):
+            t0 = time.perf_counter()
+            outs[name] = run_cli(f"tpumil_torch.cli.{name.split()[0]}",
+                                 common + runs[name][0], tmp)
+            walls[name] = time.perf_counter() - t0
+
+        # the f32 attention_map alone, then the other three side by side
+        timed("attention_map")
+        with ThreadPoolExecutor(3) as pool:
+            list(pool.map(timed, list(runs)[1:]))
+        for name, (_, folders) in runs.items():
+            for folder in folders:
+                ext = ".csv" if folder.endswith("scores") else ".png"
+                want = sorted(os.path.basename(d) + ext for d in bags)
+                got = sorted(os.listdir(os.path.join(tmp, folder)))
+                if got != want:
+                    raise AssertionError(f"{name} wrote {got} to {folder}, "
+                                         f"want {want}")
+            if len(verdicts(outs[name])) != len(bags):
+                raise AssertionError(f"{name} printed {outs[name]!r}")
+        log(f"[attention_map] {len(bags)} bags of {list(AM_BAGS)} JPEG "
+            f"patches of 224^2 on tile grids of {sides} columns with holes; "
+            + "; ".join(f"python -m tpumil_torch.cli.{n} --device cuda exit "
+                        f"0 in {walls[n]:.2f} s ({n_total / walls[n]:.1f} "
+                        f"patches/s, start-up included"
+                        f"{'' if i == 0 else ', three side by side'}), "
+                        f"verdicts {verdicts(outs[n])}"
+                        for i, n in enumerate(runs))
+            + f"; a PNG per bag each, the CSVs where asked; {gpu}")
+
+        # in-process, from the CLI's embedder and aggregator (f32, batch 64)
+        emb, _, agg, model = load_milnet(emb_path, tcga, 2, dev)
+        infer = BagInference(emb, agg, batch_size=AM_BATCH, model=model)
+        # warm-up: a batch through the embedder, then the aggregator's
+        # first call, timed (the CLIs pay it on their first bag)
+        warm = torch.from_numpy(infer.extractor.embed_arrays(np.zeros(
+            (AM_BATCH, 224, 224, 3), np.uint8))).to(dev)
+        first = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                agg(warm, None, ins_logits=warm[:, :2])
+            torch.cuda.synchronize()
+            first.append(time.perf_counter() - t0)
+        per_bag = []
+
+        def note(line):
+            """After each bag's run_bag: its decode+embed+aggregate time."""
+            st = infer.stats
+            per_bag.append(st.embed_seconds + st.aggregate_seconds
+                           - sum(per_bag))
+
+        torch.cuda.synchronize()
+        fused_stem.launches = fused_instance_norm.launches = 0
+        t0 = time.perf_counter()
+        results = run_attention_maps(
+            infer, bags, THRESHOLDS, CLASSES, os.path.join(tmp, "inproc"),
+            score_path=os.path.join(tmp, "inproc_scores"), seed=0, log=note)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k5, k4 = fused_stem.launches, fused_instance_norm.launches
+        batches = sum(-(-n // AM_BATCH) for n in AM_BAGS)
+        if (k5, k4) != (batches, 19 * batches):
+            raise AssertionError(f"K5/K4 launches {(k5, k4)} over {batches} "
+                                 f"batches, want {(batches, 19 * batches)}")
+        st = infer.stats
+        split = (f"decode+embed {st.embed_seconds:.3f} s, aggregate "
+                 f"{st.aggregate_seconds:.3f} s, render "
+                 f"{st.render_seconds:.3f} s, PNG {st.png_seconds:.3f} s, CSV "
+                 f"{st.csv_seconds:.3f} s")
+        if [r.detected for r in results] != [
+                [i for i, c in enumerate(CLASSES) if c in v]
+                for v in verdicts(outs["attention_map"])]:
+            raise AssertionError("in-process verdicts differ from the CLI's")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            infer.stats = HeatmapStats()
+            t0 = time.perf_counter()
+            run_attention_maps(infer, bags, THRESHOLDS, CLASSES,
+                               os.path.join(tmp, "traced"), seed=0,
+                               log=lambda s: None)
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t0
+        events = device_events(prof)
+        busy = (f"{busy_us(events) / 1e6 / traced * 100:.1f}% of the traced "
+                f"wall {traced:.3f} s" if events else "not measured (no "
+                "device events in the trace)")
+        log(f"[attention_map] in-process run_attention_maps (f32, batch "
+            f"{AM_BATCH}, 8 decode threads): {n_total} patches in {batches} "
+            f"batches (each bag's last padded), K5/K4 launches {k5}/{k4} (1/19 "
+            f"per batch); {wall:.3f} s = {n_total / wall:.1f} patches/s; per "
+            f"bag (decode, embed, aggregate) "
+            + ", ".join(f"{n}: {n / t:.1f} patches/s"
+                        for n, t in zip(AM_BAGS, per_bag))
+            + f"; {split}; device busy {busy}; the aggregator's first call "
+            f"{first[0]:.3f} s, its second {first[1] * 1e3:.1f} ms (before "
+            f"the run); {gpu}")
+
+        # BagInference against embed_paths plus the aggregator on the card
+        errs = []
+        for d, r in zip(bags, results):
+            feats = torch.from_numpy(infer.extractor.embed_paths(
+                list_patches(d, exts=("jpg",)))).to(dev)
+            with torch.inference_mode():
+                logits = F.linear(feats, emb.fc.weight, emb.fc.bias)
+                _, bag_logits, attn, _ = agg(feats, None, ins_logits=logits)
+            for name, got, want in (
+                    ("scores", r.scores, torch.sigmoid(bag_logits)),
+                    ("attention", r.attention, attn)):
+                errs.append(check_close(f"{os.path.basename(d)} {name}",
+                                        torch.from_numpy(np.asarray(got)),
+                                        want.cpu(), 1e-5, 0.0))
+        # the 130-patch bag on the card against the port's CPU path
+        small = bags[AM_BAGS.index(min(AM_BAGS))]
+        got = infer.run_bag(small)
+        emb_c, _, agg_c, _ = load_milnet(emb_path, tcga, 2,
+                                         torch.device("cpu"))
+        want = BagInference(emb_c, agg_c, batch_size=AM_BATCH,
+                            model=model).run_bag(small)
+        cpu_err = max(check_close(f"card vs CPU {name}",
+                                  torch.from_numpy(g), torch.from_numpy(w),
+                                  1e-4, 1e-4)
+                      for name, g, w in zip(("scores", "attention",
+                                             "ins_logits"), got, want))
+        if not np.array_equal(got[3], want[3]):
+            raise AssertionError("positions differ between card and CPU")
+        log(f"[attention_map] BagInference vs embed_paths plus the aggregator "
+            f"on the card, every bag: max_abs_err {max(errs):.3e} (atol "
+            f"1e-5); the {min(AM_BAGS)}-patch bag, card vs the CPU path: "
+            f"scores, attention, instance logits max_abs_err {cpu_err:.3e} "
+            f"(atol 1e-4, rtol 1e-4)")
+
+        # bf16 (K5's bf16 route) against f32, in-process and through the CLI
+        emb_b, _, agg_b, _ = load_milnet(emb_path, tcga, 2, dev,
+                                         precision="bf16")
+        bf16 = [BagInference(emb_b, agg_b, batch_size=AM_BATCH,
+                             model=model).run_bag(d)[0] for d in bags]
+        if not all(np.isfinite(s).all() for s in bf16):
+            raise AssertionError(f"bf16 scores not finite: {bf16}")
+        gap = max(float(np.abs(b - r.scores).max())
+                  for b, r in zip(bf16, results))
+        same = verdicts(outs["attention_map"]) == \
+            verdicts(outs["attention_map --precision bf16"])
+        csv_gap = 0.0
+        for d in bags:
+            name = os.path.basename(d) + ".csv"
+            a, b = (np.loadtxt(os.path.join(tmp, folder, name), delimiter=",",
+                               skiprows=1, usecols=(0, 1))
+                    for folder in ("am_scores", "bf16_scores"))
+            if not np.isfinite(b).all():
+                raise AssertionError(f"bf16 attention CSV {name} not finite")
+            csv_gap = max(csv_gap, float(np.abs(a - b).max()))
+        log(f"[attention_map] bf16 embedder vs f32: bag scores max gap "
+            f"{gap:.3e} (in-process), attention CSVs max gap {csv_gap:.3e} "
+            f"(the CLIs'); verdicts {'agree' if same else 'differ'} "
+            f"(f32 {verdicts(outs['attention_map'])}, bf16 "
+            f"{verdicts(outs['attention_map --precision bf16'])})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1450,6 +1680,7 @@ def main() -> int:
     stem = phase_stem(gpu)[torch.float32]
     k5_launches = phase_compute_feats(gpu)
     phase_slide_feats(gpu)
+    phase_attention_map(gpu)
     kernels = [{
         "name": "fused_instance_norm", "route": "cuda",
         "source": "tpumil_torch/csrc/instance_norm.cu",

@@ -590,3 +590,43 @@ def test_fused_stem_resnet_route(card, monkeypatch):
         conv, _ = model(imgs[224])
     np.testing.assert_allclose(feats[224].cpu().numpy(), conv.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_bag_inference_on_card(card, tmp_path):
+    """BagInference at 224^2 on a bag of 6 patches at batch 4 (the last
+    batch ragged): one K5 and 19 K4 launches per batch, and scores,
+    attention and instance logits within 1e-4 of the port's CPU path."""
+    import os
+
+    from PIL import Image
+
+    from tpumil_torch.cli.attention_map import load_milnet
+    from tpumil_torch.infer.heatmap import BagInference
+    from tpumil_torch.models import embedder
+
+    rng = np.random.default_rng(5)
+    bag = tmp_path / "slide0"
+    bag.mkdir()
+    for k in range(6):
+        Image.fromarray(rng.integers(0, 256, (224, 224, 3), np.uint8)) \
+            .save(bag / f"{k // 3}_{2 * (k % 3)}.jpg")
+    emb_path = str(tmp_path / "embedder.pth")
+    torch.save(embedder.export_embedder_state_dict(embedder.init_params(
+        0, embedder.EmbedderConfig(), torch.device("cpu"))), emb_path)
+    agg_path = os.path.join(os.path.dirname(__file__), "data",
+                            "tcga_aggregator.pth")
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        emb, _, agg, model = load_milnet(emb_path, agg_path, 2, dev)
+        infer = BagInference(emb, agg, batch_size=4, num_workers=2,
+                             model=model)
+        k4, k5 = fused_instance_norm.launches, fused_stem.launches
+        out[dev.type] = infer.run_bag(str(bag))
+        torch.cuda.synchronize()
+        launches = (fused_stem.launches - k5, fused_instance_norm.launches - k4)
+        assert launches == ((2, 38) if dev.type == "cuda" else (0, 0))
+    for got, want in zip(out["cuda"][:3], out["cpu"][:3]):
+        assert got.shape == want.shape and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(out["cuda"][3], out["cpu"][3])

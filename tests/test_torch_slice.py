@@ -123,6 +123,8 @@ _PORT_MODULES = [
     "tpumil_torch.cli.train_mil", "tpumil_torch.data.mil_bench",
     "tpumil_torch.models.abmil", "tpumil_torch.models.poolmil",
     "tpumil_torch.models.milnet", "tools.mil_profile",
+    "tpumil_torch.cli.testing_tcga", "tpumil_torch.cli.testing_c16",
+    "tools.heatmap_profile",
 ]
 # not installed beside the card (sklearn, optax, orbax, pandas), or the
 # package the port replaces

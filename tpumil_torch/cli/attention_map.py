@@ -1,8 +1,22 @@
-"""Model assembly of the inference scripts (counterpart of
-tpumil/cli/attention_map.py::load_milnet; the heatmap CLI itself comes with
-the inference slice)."""
+"""Attention heatmap CLI (counterpart of tpumil/cli/attention_map.py, the
+reference's attention_map.py), and ``load_milnet``, the model assembly that
+the three inference scripts share.
+
+    python -m tpumil_torch.cli.attention_map --device cuda \\
+        --embedder_weights <embedder.pth> --aggregator_weights <aggregator.pth> \\
+        --bag_path <folder of bag folders> --map_path <output folder>
+
+Each bag folder holds ``<a>_<b>.jpg`` patches; each bag gets
+``<map_path>/<bag>.png`` and, with ``--export_scores 1``,
+``<score_path>/<bag>.csv`` of per-patch attention scores.
+"""
 
 from __future__ import annotations
+
+import argparse
+import glob
+import os
+import sys
 
 import torch
 
@@ -45,3 +59,85 @@ def load_milnet(embedder_weights: str, aggregator_weights: str,
         fc = fc[0]
     emb.set_head(fc.weight.detach(), fc.bias.detach())
     return emb, emb_cfg, agg, model_name
+
+
+DATA_PARALLEL_HELP = (
+    "Shard each patch batch over the first N devices (not ported yet: "
+    "raises) [0 = off]")
+
+
+def refuse_data_parallel(n: int) -> None:
+    if n:
+        raise NotImplementedError(
+            "--data_parallel belongs to the scale-out slice (ROADMAP Queue "
+            "1), not ported yet; run on one device")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description="Attention computing and color map production")
+    parser.add_argument("--num_classes", type=int, default=2)
+    parser.add_argument("--batch_size", type=int, default=64)
+    parser.add_argument("--num_workers", type=int, default=8)
+    parser.add_argument("--feats_size", type=int, default=512)
+    parser.add_argument("--thres", nargs="+", type=float, default=[0.7371, 0.2752])
+    parser.add_argument("--class_name", nargs="+", type=str, default=None)
+    parser.add_argument("--embedder_weights", type=str, default="test/weights/embedder.pth")
+    parser.add_argument("--aggregator_weights", type=str, default="test/weights/aggregator.pth")
+    parser.add_argument("--bag_path", type=str, default="test/patches")
+    parser.add_argument("--patch_ext", type=str, default="jpg")
+    parser.add_argument("--map_path", type=str, default="test/output")
+    parser.add_argument("--export_scores", type=int, default=0)
+    parser.add_argument("--score_path", type=str, default="test/score")
+    parser.add_argument("--average", action="store_true")
+    parser.add_argument("--seed", type=int, default=None,
+                        help="Seed for the per-class heatmap colors (the "
+                             "reference draws them unseeded)")
+    parser.add_argument("--backbone", type=str, default="resnet18")
+    parser.add_argument("--precision", default="f32",
+                        choices=["bf16", "f32", "f32h", "f32x"],
+                        help="Embedding precision; f32 matches the shipped "
+                             "reference thresholds; bf16 runs the stem "
+                             "kernel's bf16 route")
+    parser.add_argument("--space_to_depth",
+                        action=argparse.BooleanOptionalAction, default=False,
+                        help="Space-to-depth stem rewrite; moot for instance "
+                             "norm at 224^2, whose stem is the fused kernel")
+    parser.add_argument("--data_parallel", default=0, type=int, metavar="N",
+                        help=DATA_PARALLEL_HELP)
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cuda without a card raises")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    refuse_data_parallel(args.data_parallel)
+
+    from tpumil_torch.infer.heatmap import BagInference, run_attention_maps
+    from tpumil_torch.utils.device import select_device
+
+    device = select_device(args.device)
+    if args.class_name is None:
+        args.class_name = [f"class {c}" for c in range(args.num_classes)]
+    if len(args.thres) != args.num_classes:
+        raise ValueError("Number of thresholds does not match classes.")
+
+    emb, _, agg, model_name = load_milnet(
+        args.embedder_weights, args.aggregator_weights, args.num_classes,
+        device, backbone=args.backbone, precision=args.precision,
+        space_to_depth=args.space_to_depth)
+    infer = BagInference(emb, agg, batch_size=args.batch_size,
+                         num_workers=args.num_workers, model=model_name)
+    bags_list = sorted(glob.glob(os.path.join(args.bag_path, "*")))
+    if args.export_scores:
+        os.makedirs(args.score_path, exist_ok=True)
+    run_attention_maps(infer, bags_list, args.thres, args.class_name,
+                       args.map_path, patch_ext=args.patch_ext,
+                       score_path=args.score_path if args.export_scores else None,
+                       average=args.average, seed=args.seed)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

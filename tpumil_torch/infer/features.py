@@ -7,8 +7,10 @@ tpumil/infer/features.py).
     while the device computes, and up to two batches stay in flight: their
     host buffers are pinned (on a CUDA device) and copied without blocking,
     and their features stay on the device until popped (``launch`` starts
-    one such batch; ``embed_arrays`` embeds an in-memory batch, and
-    ``infer/stream_embed.py`` streams slides through ``launch``);
+    one such batch, ``launch_with_logits`` keeps its instance logits too;
+    ``embed_arrays`` embeds an in-memory batch, ``infer/stream_embed.py``
+    streams slides through ``launch`` and ``infer/heatmap.py`` bags
+    through ``launch_with_logits``);
   * tree (multi-magnification) mode batches all high-magnification patches
     of a bag together;
   * the per-bag CSVs keep the reference's ``%.4f`` format.
@@ -64,11 +66,12 @@ class FeatureExtractor:
         self.num_workers = num_workers
         self.stats = ExtractorStats()
 
-    def launch(self, batch: np.ndarray):
+    def launch_with_logits(self, batch: np.ndarray):
         """Start the forward of one host batch [n, T, T, 3] (uint8, or float
-        in [0, 1]). Returns its features [n, K] on the device and the host
-        tensor it was copied from, which the caller keeps until the features
-        are read: on a CUDA device the copy is pinned and does not block."""
+        in [0, 1]). Returns both outputs of that one forward on the device,
+        its features [n, K] and instance logits [n, C], and the host tensor
+        it was copied from, which the caller keeps until the outputs are
+        read: on a CUDA device the copy is pinned and does not block."""
         if batch.dtype != np.uint8:
             batch = batch.astype(np.float32, copy=False)
         # pin_memory needs a CUDA build and device; the CPU path copies
@@ -78,7 +81,13 @@ class FeatureExtractor:
         if pin:
             host = host.pin_memory()
         with torch.inference_mode():
-            feats, _ = self.model(host.to(self.device, non_blocking=pin))
+            feats, logits = self.model(host.to(self.device, non_blocking=pin))
+        return feats, logits, host
+
+    def launch(self, batch: np.ndarray):
+        """As :meth:`launch_with_logits`, without the logits: (features on
+        the device, host tensor)."""
+        feats, _, host = self.launch_with_logits(batch)
         return feats, host
 
     def embed_arrays(self, batch: np.ndarray) -> np.ndarray:
