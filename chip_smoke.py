@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, training (WSI and classic MIL),
-feature-extraction, slide-streaming and inference-and-heatmap paths once on
-one CUDA card (sm_90a).
+feature-extraction, slide-streaming, inference-and-heatmap and SimCLR
+pretraining paths once on one CUDA card (sm_90a).
 
     python3 chip_smoke.py
 
@@ -63,6 +63,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   aggregator and the 130-patch bag against the port's CPU
                   path; patches/s per bag, the device's busy share, the wall
                   split into decode and embed, aggregate, render, PNG, CSV
+ 15. simclr    -- a tree of 320 JPEG patches of 224^2: python -m
+                  tpumil_torch.cli.simclr_train --device cuda (ResNet18-IN,
+                  bf16, batch 64, 3 epochs), killed once epoch 2's resume
+                  state is saved, then resumed with --grad_cache 16; one f32
+                  step at batch 8 on the card against the CPU, grad-cache
+                  and remat against the monolithic step at batch 64, each
+                  held to a float64 step of the same weights and views, with
+                  K4/K5 launches counted (0: the trainable net takes the
+                  differentiable route); ms per step, views/s and peak memory
+                  in bf16 and f32 at batch 64 and 512 and at the reference's
+                  4096 with --grad_cache 128; the busy share and the
+                  normalization's share of a default step; the trained
+                  model.pth through compute_feats' embedder (K5/K4 1/19)
 Then one JSON line of kernel results (each with its bound: the larger of
 its bytes over the memory rate and its operations over the peak rate of
 their type) and, last, the device JSON line.
@@ -1663,6 +1676,431 @@ def phase_attention_map(gpu: str) -> None:
             f"{verdicts(outs['attention_map --precision bf16'])})")
 
 
+
+# the SimCLR tree (bags x patches of 224^2), the CLI's batch, the batch of
+# the card-against-CPU step, the timed batches and the reference's batch
+SC_BAGS, SC_PATCHES, SC_BATCH, SC_CPU_B = 4, 80, 64, 8
+SC_TIMED = (64, 512)
+SC_REF_BATCH, SC_REF_MB = 4096, 128
+# f32 gradients of a SimCLR step near its initialization are ill-conditioned:
+# the views' projections nearly coincide, so dL/dz is a small difference of
+# large terms, and its rounding error reaches every weight through the
+# (linear) backward pass alike. On the CPU at batch 8, each tensor's f32
+# gradient lies ~2e-3 (L2, relative) from float64's, up to ~4% in max
+# norm. So each f32 gradient is held to a float64 gradient of the same
+# weights and views: on every tensor, its relative L2 distance to float64
+# may be at most SC_F64_FACTOR times the baseline f32 computation's largest
+# (the CPU's; for grad-cache and remat, the card's monolithic step's), plus
+# SC_F64_FLOOR. A cut gradient is 1.0 away. Losses agree to SC_LOSS_RTOL.
+SC_F64_FACTOR, SC_F64_FLOOR, SC_LOSS_RTOL = 4.0, 1e-4, 1e-4
+# the same step with TF32 allowed must lie at least this many times farther
+# from float64: TF32 leaking into the backward convolutions would make the
+# f32 tier's gradients as far off as TF32's
+SC_TF32_FACTOR = 4.0
+# kernel names of the normalization (F.instance_norm runs as batch norm)
+NORM_KEYS = ("norm", "bn_fw", "bn_bw", "welford")
+
+
+def simclr_grads(trainer, model, u, images):
+    """(loss, {name: grad}) of one train step that leaves the weights as
+    they are (SGD at lr 0): the step's own gradients, grad-cache or not."""
+    opt = torch.optim.SGD(model.parameters(), lr=0.0)
+    loss = trainer.train_step(model, opt, u, images, 0.0)
+    return float(loss), {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+
+
+def simclr_f64_grads(model, u, images):
+    """(loss, {name: grad}) in float64 of ``model``'s f32 weights on the
+    f32 views of (u, images), on the model's device: the reference of the
+    f32 gradients (the pooled features pass through f32, ~6e-8)."""
+    from tpumil_torch.models.simclr import SimCLR, SimCLRConfig
+    from tpumil_torch.ops.augment import augment_pair_batch
+    from tpumil_torch.ops.nt_xent import l2_normalize, nt_xent_loss
+
+    dev = model.l1.weight.device
+    ref = SimCLR(SimCLRConfig(compute_dtype=torch.float64), dev).double()
+    ref.load_state_dict(model.state_dict())
+    views = augment_pair_batch(images.to(dev).float() / 255, u, 224,
+                               torch.float32)
+    z = [F.linear(torch.relu(F.linear(ref.backbone(v).double(), ref.l1.weight,
+                                      ref.l1.bias)), ref.l2.weight, ref.l2.bias)
+         for v in views]
+    loss = nt_xent_loss(l2_normalize(z[0]), l2_normalize(z[1]), 0.5)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach() for n, p in ref.named_parameters()}
+
+
+def f64_errors(grads, ref):
+    """{name: ||g - ref|| / ||ref||} (L2 over each tensor)."""
+    return {k: ((grads[k].to(r.device).double() - r).norm()
+                / r.norm()).item() for k, r in ref.items()}
+
+
+def grads_as_accurate(name: str, errs, base: float) -> float:
+    """Raises where a tensor's float64 distance passes SC_F64_FACTOR x
+    ``base`` plus SC_F64_FLOOR; returns the largest distance."""
+    for k, e in errs.items():
+        if not (np.isfinite(e) and e <= SC_F64_FACTOR * base + SC_F64_FLOOR):
+            raise AssertionError(
+                f"{name}: {k} gradient {e:.3e} from float64 (relative L2), "
+                f"the baseline's largest {base:.3e} (bar {SC_F64_FACTOR} x "
+                f"baseline + {SC_F64_FLOOR})")
+    return max(errs.values())
+
+
+def loss_close(name: str, got: float, want: float) -> float:
+    rel = abs(got - want) / abs(want)
+    if not (np.isfinite(got) and rel <= SC_LOSS_RTOL):
+        raise AssertionError(f"{name}: loss {got} against {want} (rel "
+                             f"{rel:.3e}, bar {SC_LOSS_RTOL})")
+    return rel
+
+
+def losses_in(out: str):
+    return [float(l.split(" loss ")[1].split()[0]) for l in out.splitlines()
+            if l.startswith("epoch ") and " loss " in l]
+
+
+def simclr_view_flops(model_cfg) -> float:
+    """FLOPs of one 224^2 view through the SimCLR model, forward and
+    backward (``torch.utils.flop_counter``: the convolutions and products,
+    2 per multiply-add), on the card. The augmentation is not counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tpumil_torch.models.simclr import init_model
+
+    model = init_model(0, model_cfg, torch.device("cuda"))
+    x = torch.rand(1, 224, 224, 3, device="cuda").to(model_cfg.compute_dtype)
+    with FlopCounterMode(display=False) as fc:
+        _, z = model(x)
+        z.float().sum().backward()
+    return float(fc.get_total_flops())
+
+
+def simclr_step_time(model_cfg, b: int, images, mb=None, remat=False,
+                     iters: int = 5):
+    """(ms per step, peak bytes) of ``iters`` synced train steps at batch
+    ``b`` after 2 warm-up steps, on the card."""
+    from tpumil_torch.ops.augment import draw_uniforms
+    from tpumil_torch.train.simclr_trainer import (SimCLRTrainConfig,
+                                                   SimCLRTrainer)
+
+    dev = torch.device("cuda")
+    tr = SimCLRTrainer(model_cfg, SimCLRTrainConfig(
+        batch_size=b, grad_cache_microbatch=mb, remat=remat), device=dev)
+    model, opt = tr.init(0)
+    gen = torch.Generator().manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        tr.train_step(model, opt, draw_uniforms(gen, b), images, 1e-5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss = tr.train_step(model, opt, draw_uniforms(gen, b), images, 1e-5)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"SimCLR loss not finite at batch {b}")
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt, tr
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
+def phase_simclr(gpu: str) -> None:
+    """SimCLR pretraining: the CLI a user runs (crashed after two epochs,
+    then resumed with the grad-cache step), one full-width step on the card
+    against the CPU, grad-cache and remat against the monolithic step, the
+    K4/K5 counts of training (0), step times, peak memory and the busy
+    share, then the trained model.pth through compute_feats' embedder."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.extract_profile import DATASET, write_tree
+    from tools.serve_profile import busy_us, device_events
+    from tpumil_torch.data.patches import decode_patch
+    from tpumil_torch.models import embedder, resnet
+    from tpumil_torch.models.simclr import SimCLRConfig, init_model
+    from tpumil_torch.ops import instance_norm, stem
+    from tpumil_torch.ops.augment import draw_uniforms
+    from tpumil_torch.train.simclr_trainer import (SimCLRTrainConfig,
+                                                   SimCLRTrainer)
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    k4, k5 = instance_norm.fused_instance_norm, stem.fused_stem
+    with tempfile.TemporaryDirectory() as tmp:
+        wsi = os.path.join(tmp, "WSI")
+        bag_dirs = write_tree(wsi, SC_BAGS, SC_PATCHES, 224, 11)
+        n = SC_BAGS * SC_PATCHES
+        run = os.path.join(tmp, "run")
+        args = ["--device", "cuda", "--dataset", DATASET, "--wsi_root", wsi,
+                "--batch_size", str(SC_BATCH), "--epochs", "3", "--config",
+                "", "--run_dir", run]
+        # 1. the CLI, killed once epoch 2's resume state is on disk (a
+        # crash), then resumed with the grad-cache step; the epoch count is
+        # part of the resume fingerprint, so both runs ask for 3
+        meta = os.path.join(run, "state", "meta.json")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "tpumil_torch.cli.simclr_train",
+             *args], cwd=tmp, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=REPO))
+        epoch = 0
+        try:
+            while proc.poll() is None and time.perf_counter() - t0 < 600:
+                try:
+                    with open(meta) as f:
+                        epoch = json.load(f)["epoch"]
+                except (OSError, ValueError, KeyError):
+                    pass
+                if epoch >= 2:
+                    proc.kill()
+                    break
+                time.sleep(0.01)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            out1 = proc.communicate(timeout=60)[0]
+        wall1 = time.perf_counter() - t0
+        if epoch != 2:
+            raise AssertionError(f"simclr_train: the state read epoch "
+                                 f"{epoch} at the kill, want 2:\n"
+                                 f"{out1[-3000:]}")
+        t0 = time.perf_counter()
+        out2 = run_cli("tpumil_torch.cli.simclr_train",
+                       args + ["--grad_cache", "16", "--resume"], tmp)
+        wall2 = time.perf_counter() - t0
+        if "Resuming SimCLR pretraining at epoch 2" not in out2:
+            raise AssertionError(f"simclr_train did not resume at epoch 2:\n"
+                                 f"{out2[-3000:]}")
+        losses = losses_in(out1) + losses_in(out2)
+        with open(os.path.join(run, "scalars.jsonl")) as f:
+            scal = [json.loads(l) for l in f]
+        valid = {r["step"]: r["value"] for r in scal
+                 if r["tag"] == "validation_loss"}
+        best = [l for l in out2.splitlines() if l.startswith("best valid")]
+        ckpt = os.path.join(run, "checkpoints", "model.pth")
+        if not (losses and sorted(valid) == [0, 1, 2] and best
+                and np.isfinite(losses + list(valid.values())).all()
+                and os.path.isfile(ckpt)):
+            raise AssertionError(f"simclr_train: train losses {losses}, "
+                                 f"validation losses {valid}, {best}, "
+                                 f"model.pth {os.path.isfile(ckpt)}")
+        rates = [l for l in (out1 + out2).splitlines()
+                 if "patches/sec" in l]
+        log(f"[simclr] python -m tpumil_torch.cli.simclr_train --device cuda "
+            f"(resnet18-IN bf16, batch {SC_BATCH}, 224^2, {n} JPEG patches, "
+            f"90/10 split): killed after epoch 2's state ({wall1:.2f} s), "
+            f"then --grad_cache 16 --resume: resumed at epoch 2, exit 0 in "
+            f"{wall2:.2f} s; logged train losses {losses}, validation "
+            f"losses by epoch {valid}; {best[0]}; "
+            f"{'; '.join(rates)}; {gpu}")
+
+        # 2. one step at full width, f32: the card against the CPU, each
+        # held to float64 on the same weights and views
+        cfg32 = SimCLRConfig(compute_dtype=torch.float32)
+        paths = sorted(os.path.join(d, f) for d in bag_dirs
+                       for f in os.listdir(d))
+        imgs = torch.from_numpy(np.stack([decode_patch(p, 224, False)
+                                          for p in paths[:SC_BATCH]]))
+        u = draw_uniforms(torch.Generator().manual_seed(5), SC_BATCH)
+        tcfg = SimCLRTrainConfig(batch_size=SC_CPU_B)
+        u8, imgs8 = u[:, :SC_CPU_B], imgs[:SC_CPU_B]
+        model_cpu = init_model(0, cfg32, cpu)
+        want_loss, want = simclr_grads(SimCLRTrainer(cfg32, tcfg, device=cpu),
+                                       model_cpu, u8, imgs8)
+        ref_loss, ref = simclr_f64_grads(model_cpu, u8, imgs8)
+        base = f64_errors(want, ref)
+        worst = max(base, key=base.get)
+        k4.launches = k5.launches = 0
+        got_loss, got = simclr_grads(SimCLRTrainer(cfg32, tcfg, device=dev),
+                                     init_model(0, cfg32, dev), u8,
+                                     imgs8.to(dev))
+        torch.cuda.synchronize()
+        counts = (k4.launches, k5.launches)
+        cpu_loss = loss_close("card vs CPU", got_loss, want_loss)
+        card_err = grads_as_accurate("card vs CPU", f64_errors(got, ref),
+                                     base[worst])
+        from tpumil_torch.models import simclr as simclr_mod
+        from tpumil_torch.ops import augment as augment_mod
+        from tpumil_torch.utils.device import disable_tf32
+
+        callers = (resnet, simclr_mod, augment_mod)
+        for mod in callers:
+            mod.disable_tf32 = lambda: None
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            _, tf32 = simclr_grads(SimCLRTrainer(cfg32, tcfg, device=dev),
+                                   init_model(0, cfg32, dev), u8,
+                                   imgs8.to(dev))
+        finally:
+            for mod in callers:
+                mod.disable_tf32 = disable_tf32
+            disable_tf32()
+        tf32_err = max(f64_errors(tf32, ref).values())
+        if not tf32_err >= SC_TF32_FACTOR * card_err:
+            raise AssertionError(f"the f32 step's gradients ({card_err:.3e} "
+                                 f"from float64) are not clear of a TF32 "
+                                 f"step's ({tf32_err:.3e})")
+        g1 = got["backbone.conv1.weight"]
+        if not (torch.isfinite(g1).all() and g1.abs().max() > 0):
+            raise AssertionError("conv1 received no gradient on the card")
+        if counts != (0, 0):
+            raise AssertionError(f"K4/K5 launched {counts} times in SimCLR "
+                                 "steps, want 0: the gradient would stop")
+        log(f"[simclr] one f32 step at batch {SC_CPU_B} (224^2, same weights, "
+            f"images and draws): card vs CPU loss {got_loss:.7f} vs "
+            f"{want_loss:.7f} (rel {cpu_loss:.3e}, bar {SC_LOSS_RTOL}; float64 "
+            f"{ref_loss:.7f}); each gradient's relative L2 distance to "
+            f"float64: CPU up to {base[worst]:.3e} ({worst}), card up to "
+            f"{card_err:.3e} (bar {SC_F64_FACTOR} x CPU + {SC_F64_FLOOR}), the "
+            f"same step with TF32 allowed {tf32_err:.3e} (bar: at least "
+            f"{SC_TF32_FACTOR} x the card's); "
+            f"card vs CPU directly up to "
+            f"{max(f64_errors(got, {k: v.double() for k, v in want.items()}).values()):.3e}"
+            f"; conv1 grad max |g| {g1.abs().max().item():.3e}; "
+            f"K4/K5 launches {counts[0]}/{counts[1]}")
+
+        # grad-cache and remat against the monolithic step, on the card,
+        # each held to float64 as above with the monolithic step as baseline
+        imgs_d = imgs.to(dev)
+        res = {}
+        for name, kw in (("monolithic", {}),
+                         ("grad-cache 16", {"grad_cache_microbatch": 16}),
+                         ("remat", {"remat": True})):
+            tr = SimCLRTrainer(cfg32, SimCLRTrainConfig(
+                batch_size=SC_BATCH, **kw), device=dev)
+            res[name] = simclr_grads(tr, init_model(0, cfg32, dev), u, imgs_d)
+        torch.cuda.synchronize()
+        if (k4.launches, k5.launches) != (0, 0):
+            raise AssertionError("K4/K5 launched in SimCLR steps")
+        _, ref = simclr_f64_grads(init_model(0, cfg32, dev), u, imgs_d)
+        base_loss, base_grads = res.pop("monolithic")
+        base = max(f64_errors(base_grads, ref).values())
+        line = []
+        for name, (loss, grads) in res.items():
+            rl = loss_close(name, loss, base_loss)
+            err = grads_as_accurate(name, f64_errors(grads, ref), base)
+            direct = max(f64_errors(grads, {k: v.double() for k, v in
+                                            base_grads.items()}).values())
+            exact = all(torch.equal(grads[k], base_grads[k])
+                        for k in base_grads)
+            line.append(f"{name}: loss rel {rl:.3e}, float64 distance up to "
+                        f"{err:.3e}, {direct:.3e} from the monolithic step"
+                        f"{' (bitwise)' if exact else ''}")
+        log(f"[simclr] f32 batch {SC_BATCH} on the card against the "
+            f"monolithic step (its gradients up to {base:.3e} from float64, "
+            f"relative L2; bars: loss {SC_LOSS_RTOL}, "
+            f"{SC_F64_FACTOR} x + {SC_F64_FLOOR}): " + "; ".join(line))
+        del res, base_grads, ref
+
+        # 3. step times and peak memory
+        gen = torch.Generator(device=dev).manual_seed(3)
+        rand = torch.randint(0, 256, (max(SC_TIMED), 224, 224, 3),
+                             dtype=torch.uint8, device=dev, generator=gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            mcfg = SimCLRConfig(compute_dtype=dtype)
+            flops = simclr_view_flops(mcfg)
+            for b in SC_TIMED:
+                remat = False
+                try:
+                    ms, peak = simclr_step_time(mcfg, b, rand[:b])
+                except torch.cuda.OutOfMemoryError:
+                    remat = True
+                if remat:  # outside the handler, which holds the frames
+                    torch.cuda.empty_cache()
+                    log(f"[simclr] {str(dtype)[6:]} batch {b}: the "
+                        f"monolithic step does not fit; with remat")
+                    ms, peak = simclr_step_time(mcfg, b, rand[:b], remat=True)
+                log(f"[simclr] resnet18-IN {str(dtype)[6:]} batch {b} (2 x "
+                    f"{b} views of 224^2){' remat' if remat else ''}: "
+                    f"{ms:.2f} ms per step, {2 * b / ms * 1e3:.1f} views/s, "
+                    f"peak {peak / 2**30:.2f} GiB; the model's "
+                    f"{flops / 1e9:.3f} GFLOP a view (forward and backward) "
+                    f"at {2 * b * flops / (ms * 1e-3) / PEAK_FLOPS[dtype] * 100:.2f}"
+                    f"% of the {str(dtype)[6:]} peak "
+                    f"({PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s); {gpu}")
+        del rand
+        ref = torch.randint(0, 256, (SC_REF_BATCH, 224, 224, 3),
+                            dtype=torch.uint8, device=dev, generator=gen)
+        ms, peak = simclr_step_time(SimCLRConfig(), SC_REF_BATCH, ref,
+                                    mb=SC_REF_MB, iters=2)
+        log(f"[simclr] the reference's batch {SC_REF_BATCH}, bf16, "
+            f"--grad_cache {SC_REF_MB}, device-made images: {ms:.1f} ms per "
+            f"step, {2 * SC_REF_BATCH / ms * 1e3:.1f} views/s, peak "
+            f"{peak / 2**30:.2f} GiB; {gpu}")
+        del ref
+
+        # the busy share and the normalization's share of a default step
+        b = max(SC_TIMED)
+        tr = SimCLRTrainer(SimCLRConfig(), SimCLRTrainConfig(batch_size=b),
+                           device=dev)
+        model, opt = tr.init(0)
+        x = torch.randint(0, 256, (b, 224, 224, 3), dtype=torch.uint8,
+                          device=dev, generator=gen)
+        g = torch.Generator().manual_seed(2)
+        tr.train_step(model, opt, draw_uniforms(g, b), x, 1e-5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                tr.train_step(model, opt, draw_uniforms(g, b), x, 1e-5)
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t0
+        events = device_events(prof)
+        if events:
+            kern = [e for e in events if e["cat"] == "kernel"]
+            total = sum(float(e["dur"]) for e in kern)
+            norm = sum(float(e["dur"]) for e in kern
+                       if any(k in e["name"].lower() for k in NORM_KEYS))
+            aug = sum(float(e["dur"]) for e in kern
+                      if "reflection_pad" in e["name"].lower())
+            by_name = {}
+            for e in kern:
+                by_name[e["name"][:48]] = by_name.get(e["name"][:48], 0.0) \
+                    + float(e["dur"])
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            busy = (f"device busy {busy_us(events) / 1e6 / traced * 100:.1f}%"
+                    f" of the traced wall {traced:.3f} s; kernels "
+                    f"{total / 3e3:.2f} ms per step, normalization kernels "
+                    f"{norm / total * 100:.1f}% of it, reflection pad "
+                    f"{aug / total * 100:.1f}%; the top kernels: "
+                    + ", ".join(f"{k} {v / total * 100:.1f}%" for k, v in top))
+        else:
+            busy = "device busy not measured (no device events in the trace)"
+        log(f"[simclr] 3 default steps (bf16, batch {b}) under "
+            f"torch.profiler: {busy}; {gpu}")
+        del model, opt, tr, x
+
+        # 4. the trained model.pth through compute_feats' embedder
+        emb = embedder.load_simclr_checkpoint(ckpt, embedder.EmbedderConfig(),
+                                              dev)
+        with torch.inference_mode():
+            k4.launches = k5.launches = 0
+            feats, _ = emb(imgs_d)
+            torch.cuda.synchronize()
+            counts = (k4.launches, k5.launches)
+            resnet.fused_instance_norm = instance_norm.instance_norm_plain
+            resnet.fused_stem = stem.stem_plain
+            try:
+                plain, _ = emb(imgs_d)
+            finally:
+                resnet.fused_instance_norm, resnet.fused_stem = k4, k5
+        if counts != (19, 1):
+            raise AssertionError(f"the SimCLR embedder launched K4/K5 "
+                                 f"{counts}, want (19, 1)")
+        err = check_close("SimCLR embedder vs plain route", feats, plain,
+                          1e-4, 1e-4)
+        log(f"[simclr] model.pth through load_simclr_checkpoint (f32, batch "
+            f"{SC_BATCH}): K4/K5 launches {counts[0]}/{counts[1]}, features "
+            f"{tuple(feats.shape)} against the plain route max_abs_err "
+            f"{err:.3e} (atol 1e-4, rtol 1e-4)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1681,6 +2119,7 @@ def main() -> int:
     k5_launches = phase_compute_feats(gpu)
     phase_slide_feats(gpu)
     phase_attention_map(gpu)
+    phase_simclr(gpu)
     kernels = [{
         "name": "fused_instance_norm", "route": "cuda",
         "source": "tpumil_torch/csrc/instance_norm.cu",

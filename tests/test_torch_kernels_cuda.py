@@ -630,3 +630,33 @@ def test_bag_inference_on_card(card, tmp_path):
         assert got.shape == want.shape and np.isfinite(got).all()
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(out["cuda"][3], out["cpu"][3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_simclr_step_trains_conv1_on_card(card, dtype):
+    """A SimCLR train step at 224^2, where a frozen net would take K5 and
+    K4: the trainable net takes the differentiable route, conv1 receives a
+    finite, non-zero gradient and moves, and K4/K5 launch 0 times."""
+    from tpumil_torch.models.simclr import SimCLRConfig
+    from tpumil_torch.ops.augment import draw_uniforms
+    from tpumil_torch.train.simclr_trainer import (SimCLRTrainConfig,
+                                                   SimCLRTrainer)
+
+    tr = SimCLRTrainer(SimCLRConfig(compute_dtype=dtype),
+                       SimCLRTrainConfig(batch_size=4), device=card)
+    model, opt = tr.init(0)
+    gen = torch.Generator(device=card).manual_seed(0)
+    images = torch.randint(0, 256, (4, 224, 224, 3), dtype=torch.uint8,
+                           device=card, generator=gen)
+    before = model.backbone.conv1.weight.detach().clone()
+    k4, k5 = fused_instance_norm.launches, fused_stem.launches
+    loss = tr.train_step(model, opt, draw_uniforms(
+        torch.Generator().manual_seed(0), 4), images, 1e-3)
+    torch.cuda.synchronize()
+    g = model.backbone.conv1.weight.grad
+    assert torch.isfinite(loss) and torch.isfinite(g).all()
+    assert g.abs().max() > 0
+    assert not torch.equal(model.backbone.conv1.weight, before)
+    assert (fused_instance_norm.launches - k4, fused_stem.launches - k5) == \
+        (0, 0)

@@ -511,3 +511,20 @@ def test_serve_module_runs_and_drains_on_sigterm(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
+
+
+def test_cli_flags_match_jax():
+    """The JAX server's flag surface and defaults, with cuda in place of
+    auto; --data_parallel N > 0 raises, as in the other ported CLIs."""
+    from test_torch_testing_cli import _flags
+    from tpumil.cli import serve as jax_serve
+    from tpumil_torch.cli import serve
+
+    port = _flags(lambda: serve.parse_args([]))
+    jax_flags = _flags(lambda: jax_serve.main([]))
+    assert (port.pop("device"), jax_flags.pop("device")) == ("cuda", "auto")
+    assert port == jax_flags
+    assert serve.parse_args(["--embedder_weights", "w"]).data_parallel == 0
+    with pytest.raises(NotImplementedError, match="scale-out slice"):
+        serve.main(["--embedder_weights", "w", "--device", "cpu",
+                    "--data_parallel", "2"])

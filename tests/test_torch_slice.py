@@ -124,7 +124,10 @@ _PORT_MODULES = [
     "tpumil_torch.models.abmil", "tpumil_torch.models.poolmil",
     "tpumil_torch.models.milnet", "tools.mil_profile",
     "tpumil_torch.cli.testing_tcga", "tpumil_torch.cli.testing_c16",
-    "tools.heatmap_profile",
+    "tools.heatmap_profile", "tpumil_torch.ops.nt_xent",
+    "tpumil_torch.ops.augment", "tpumil_torch.models.simclr",
+    "tpumil_torch.models.baseline_encoder", "tpumil_torch.utils.prof",
+    "tpumil_torch.train.simclr_trainer", "tpumil_torch.cli.simclr_train",
 ]
 # not installed beside the card (sklearn, optax, orbax, pandas), or the
 # package the port replaces

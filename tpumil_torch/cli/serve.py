@@ -34,6 +34,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from tpumil_torch.cli.attention_map import (DATA_PARALLEL_HELP,
+                                           refuse_data_parallel)
+
 MAX_BODY_BYTES = 1 << 30
 
 
@@ -252,11 +255,14 @@ def parse_args(argv=None):
                         help="testing-flow score averaging (bag sigmoid + "
                              "max-instance sigmoid)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--data_parallel", type=int, default=0, metavar="N",
+                        help=DATA_PARALLEL_HELP)
     return parser.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    refuse_data_parallel(args.data_parallel)
     service = build_service(args)
     server = make_server(service, args.host, args.port)
     host, port = server.server_address[:2]

@@ -43,6 +43,31 @@ def embedder_state_dict(params: Dict, cfg: ResNetConfig
     return sd
 
 
+def simclr_state_dict(params: Dict, cfg) -> "collections.OrderedDict":
+    """``{"backbone": {...}, "l1": {"w", "b"}, "l2": {"w", "b"}}`` ->
+    ``models/simclr.SimCLR.state_dict`` (``cfg`` a ``SimCLRConfig``)."""
+    sd = resnet_state_dict(params["backbone"], cfg.resnet_cfg,
+                           prefix="backbone.")
+    for layer in ("l1", "l2"):
+        sd[f"{layer}.weight"] = _t(params[layer]["w"])
+        sd[f"{layer}.bias"] = _t(params[layer]["b"])
+    return sd
+
+
+def baseline_encoder_state_dict(params: Dict) -> "collections.OrderedDict":
+    """``{"conv0".."conv3": {"w" HWIO, "b"}, "l1", "l2"}`` ->
+    ``models/baseline_encoder.BaselineEncoder.state_dict``."""
+    sd = collections.OrderedDict()
+    for i in range(4):
+        sd[f"conv{i}.weight"] = _t(np.transpose(
+            np.asarray(params[f"conv{i}"]["w"], np.float32), (3, 2, 0, 1)))
+        sd[f"conv{i}.bias"] = _t(params[f"conv{i}"]["b"])
+    for layer in ("l1", "l2"):
+        sd[f"{layer}.weight"] = _t(params[layer]["w"])
+        sd[f"{layer}.bias"] = _t(params[layer]["b"])
+    return sd
+
+
 def dsmil_state_dict(params: Dict) -> "collections.OrderedDict":
     """``{i_fc, q: {w0, b0, w2, b2} | {w, b}, v, fcc}`` -> ``DSMIL.state_dict``
     (the reference schema)."""

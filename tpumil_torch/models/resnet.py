@@ -12,6 +12,12 @@ of tpumil/models/resnet.py), built without torchvision.
     Convolutions and the max pool stay ``F.conv2d`` / ``F.max_pool2d``,
     except in the stem of an instance-norm net on 224^2 inputs, which is
     the one Hopper kernel of ``ops/stem.fused_stem`` (K5).
+  * The route follows the weights: a net whose conv weights require grad
+    (SimCLR pretraining) runs every stem and IN site as differentiable
+    library ops instead (cuDNN conv, ``F.instance_norm``, ReLU,
+    ``F.max_pool2d``), as the JAX package runs XLA's norm when it trains;
+    K4 and K5 have no backward and refuse a grad-requiring input. A frozen
+    net (every inference path) takes K4 and K5.
   * Batch norm runs folded running statistics (inference only).
   * ``compute_dtype`` bf16 keeps activations in bf16 between layers; norm
     statistics are always taken in f32. Parameters stay f32.
@@ -168,6 +174,17 @@ def _instance_norm(x: torch.Tensor, relu: bool) -> torch.Tensor:
     return fused_instance_norm(x.permute(0, 2, 3, 1), relu).permute(0, 3, 1, 2)
 
 
+def _instance_norm_autograd(x: torch.Tensor, relu: bool) -> torch.Tensor:
+    """IN(+ReLU) of an NCHW tensor as a differentiable library op: per
+    (sample, channel) statistics over the stored values in f32 (opmath for
+    bf16), biased variance, eps 1e-5, output in x's dtype (the counterpart
+    of tpumil/models/resnet.py::_norm). A one-element plane (inputs below
+    64^2 leave ResNet's last stage 1x1) normalizes to exactly 0, with a zero
+    gradient; F.instance_norm refuses it."""
+    y = x - x if x.shape[2] * x.shape[3] == 1 else F.instance_norm(x, eps=EPS)
+    return torch.relu(y) if relu else y
+
+
 class _Block(nn.Module):
     """One residual block; submodule names give torchvision's keys."""
 
@@ -192,25 +209,28 @@ class _Block(nn.Module):
             self._strides.append(stride)
         self._batch = batch
 
-    def _norm(self, conv_leaf: str, x: torch.Tensor, relu: bool):
+    def _norm(self, conv_leaf: str, x: torch.Tensor, relu: bool,
+              instance_norm):
         if self._batch:
             if conv_leaf == "downsample":
                 return self.downsample[1](x, relu)
             return getattr(self, conv_leaf.replace("conv", "bn"))(x, relu)
-        return _instance_norm(x, relu)
+        return instance_norm(x, relu)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                instance_norm) -> torch.Tensor:
         h = x
         last = len(self._names) - 1
         for i, leaf in enumerate(self._names):
             w = getattr(self, leaf).weight
             h = _conv(h, w, self._strides[i], dtype)
-            h = self._norm(leaf, h, relu=i < last)
+            h = self._norm(leaf, h, i < last, instance_norm)
         identity = x
         if hasattr(self, "downsample"):
             identity = _conv(x, self.downsample[0].weight, self._strides[-1],
                              dtype)
-            identity = self._norm("downsample", identity, relu=False)
+            identity = self._norm("downsample", identity, False,
+                                  instance_norm)
         return torch.relu(h + identity)
 
 
@@ -285,12 +305,16 @@ class ResNet(nn.Module):
         cfg = self.cfg
         dtype = cfg.compute_dtype
         disable_tf32()
-        if cfg.norm == "instance" and tuple(x.shape[1:]) == STEM_INPUT:
+        trainable = self.conv1.weight.requires_grad
+        instance_norm = _instance_norm_autograd if trainable \
+            else _instance_norm
+        if cfg.norm == "instance" and tuple(x.shape[1:]) == STEM_INPUT \
+                and not trainable:
             # conv, IN, ReLU and max pool in K5; NHWC out, handed on as its
             # NCHW channels_last view (no copy)
             w7 = self.conv1.weight.permute(2, 3, 1, 0).contiguous()  # HWIO
             x = fused_stem(x.contiguous(), w7, dtype).permute(0, 3, 1, 2)
-        else:  # the inputs K5 does not take: batch norm, other sizes
+        else:  # batch norm, other sizes, and every trainable net
             # the NCHW permute of a contiguous NHWC tensor IS channels_last
             x = x.permute(0, 3, 1, 2).to(dtype)
             if cfg.space_to_depth and x.shape[2] % 2 == 0 \
@@ -299,11 +323,11 @@ class ResNet(nn.Module):
             else:
                 x = _conv(x, self.conv1.weight, 2, dtype)
             x = self.bn1(x, True) if cfg.norm == "batch" \
-                else _instance_norm(x, True)
+                else instance_norm(x, True)
             x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:
-                x = block(x, dtype)
+                x = block(x, dtype, instance_norm)
         return x.mean(dim=(2, 3)).float()
 
 

@@ -88,10 +88,23 @@ def _check(x: torch.Tensor) -> None:
             f"{x.stride()} for shape {tuple(x.shape)}")
 
 
+def refuse_grad(op: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record ``op``: on a CUDA tensor the kernel
+    writes a fresh buffer through ctypes, whose output has no autograd
+    history, so a gradient would silently stop there (on every device, so
+    that a CPU run cannot hide it)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{op} has no backward: it takes no input that requires grad "
+            "(a trainable ResNet runs the differentiable conv route)")
+
+
 def fused_instance_norm(x: torch.Tensor, relu: bool = False) -> torch.Tensor:
     """InstanceNorm2d(affine=False)(x) (+ReLU) over contiguous NHWC ``x``
-    (f32 or bf16); returns a new tensor of the same shape and dtype."""
+    (f32 or bf16); returns a new tensor of the same shape and dtype. Raises
+    ``ValueError`` for an ``x`` that requires grad while grad mode is on."""
     _check(x)
+    refuse_grad("fused_instance_norm", x)
     if x.device.type == "cpu":
         return instance_norm_plain(x, relu)
     if x.device.type != "cuda":

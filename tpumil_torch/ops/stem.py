@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tpumil_torch.ops.instance_norm import EPS, instance_norm_plain
+from tpumil_torch.ops.instance_norm import (EPS, instance_norm_plain,
+                                            refuse_grad)
 from tpumil_torch.utils.device import disable_tf32
 
 H_IN, H_OUT, C_IN, C_OUT = 224, 56, 3, 64
@@ -61,8 +62,10 @@ def fused_stem(x: torch.Tensor, w7: torch.Tensor,
     """conv7x7/s2 + InstanceNorm + ReLU + maxpool3x3/s2 of NHWC 224^2
     images (any float dtype, rounded to ``compute_dtype`` as the conv reads
     them); returns a new contiguous ``[B, 56, 56, 64]`` tensor in
-    ``compute_dtype``."""
+    ``compute_dtype``. Raises ``ValueError`` for an ``x`` or ``w7`` that
+    requires grad while grad mode is on."""
     _check(x, w7, compute_dtype)
+    refuse_grad("fused_stem", x, w7)
     if x.device.type == "cpu":
         return stem_plain(x, w7, compute_dtype)
     if x.device.type != "cuda":
