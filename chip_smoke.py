@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving, training (WSI and classic MIL),
 feature-extraction, slide-streaming, inference-and-heatmap and SimCLR
-pretraining paths once on one CUDA card (sm_90a).
+pretraining paths, the bf16 giant-bag forward and the five-stage pipeline
+once on one CUDA card (sm_90a).
 
     python3 chip_smoke.py
 
@@ -76,6 +77,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   4096 with --grad_cache 128; the busy share and the
                   normalization's share of a default step; the trained
                   model.pth through compute_feats' embedder (K5/K4 1/19)
+ 16. pool_bf16 -- K1-bf16 (the bf16 feature stream of K1) vs its plain
+                  version at K=512, C=2, N up to 262144, its error against
+                  the f32 K1, bitwise reruns, the times of the kernel, the
+                  plain version and the f32 -> bf16 cast of the bag; then
+                  fused_bag_forward(feats_dtype=bfloat16) on a DSMIL at
+                  N=65529 against the CPU, its K1-bf16 launch counted
+ 17. pipeline  -- eight synthetic two-page TIFF slides of 1024^2: python -m
+                  tpumil_torch.cli.pipeline --stages tile,simclr, then the
+                  feats, train and maps stages through pipeline.main with
+                  K5/K4 (and K1-K3) launches counted per stage; every
+                  stage's artifacts, the resolved YAML's round trip, walls
 Then one JSON line of kernel results (each with its bound: the larger of
 its bytes over the memory rate and its operations over the peak rate of
 their type) and, last, the device JSON line.
@@ -127,6 +139,12 @@ K2_FFMA_MS = {1000: 0.078, 65529: 0.833, 262144: 3.334}
 # normalize pass), ms at B=128 on an NVIDIA H100 80GB HBM3 at 700 W: f32 in
 # two runs, bf16
 K5_FFMA_MS = {torch.float32: "1.122 / 1.182", torch.bfloat16: "0.965"}
+# K1-bf16 against attention_pool_bf16_plain at the kernel's rounding point
+# (p against the global max): h and q run as bf16 hi + lo (16 bits), so m,
+# s and the logits carry ~1e-5 of their max; B also moves by one bf16
+# spacing of a weight times |f| / s wherever a logit's error flips that
+# weight's rounding (ap.bf16_rounding_slack)
+BF16_RTOL = 1e-4
 TRAIN_N = [1500, 4000, 9000, 20000, 40000, 65529]
 TRAIN_EPOCHS = 3
 # the compute_feats tree: classes x bags per class x patches of 224^2
@@ -137,6 +155,10 @@ SF_CLASSES, SF_SIDE, SF_TISSUE = 2, 4480, 0.6
 # the attention_map bags (patches each; every last batch of 64 ragged) and
 # the CLIs' batch
 AM_BAGS, AM_BATCH = (600, 1000, 130), 64
+# the pipeline's slides: per class, side^2 at 20x with a textured tissue
+# square of tissue^2 in the corner (tests/test_pipeline_e2e.py's generator,
+# grown to give ~16 tiles of 224^2 each)
+PL_CLASSES, PL_SLIDES, PL_SIDE, PL_TISSUE = 2, 4, 1024, 800
 # H100 SXM published peaks at 700 W (NVIDIA's data sheet, dense): memory
 # bytes/s, and flop/s by operand type (f32 on the CUDA cores, bf16 on the
 # tensor cores)
@@ -791,6 +813,127 @@ def phase_pool(gpu: str) -> dict:
     return {"err": worst, "ms": times[65529], "bound": bounds[65529]}
 
 
+def phase_pool_bf16(gpu: str) -> dict:
+    """K1-bf16 against its plain version at POOL_N, its error against the
+    f32 K1 on the same bag, bitwise reruns, times (the kernel, the plain
+    version, the f32 -> bf16 cast of the bag, the f32 K1) and the bound;
+    then the path: fused_bag_forward(feats_dtype=bfloat16) on a DSMIL at
+    the paper's width and N = 65529, its launches counted, against the
+    CPU's forward."""
+    from tpumil_torch.models.dsmil import DSMIL, DSMILConfig
+    from tpumil_torch.ops import attention_pool as ap
+
+    bf = torch.bfloat16
+    worst, out = 0.0, {}
+    for i, (n, n_valid, nonlinear) in enumerate(POOL_N):
+        feats, w, qm, _ = pool_inputs(n, nonlinear, 40 + i)
+        f32_args = (feats, *w, qm)
+        args = (feats.to(bf), w[0].to(bf), w[1],
+                None if w[2] is None else w[2].to(bf), w[3], qm.to(bf))
+        got = ap.attention_pool_fwd_bf16(*args, n_valid, nonlinear)
+        torch.cuda.synchronize()
+        want = ap.attention_pool_bf16_plain(*args, n_valid, nonlinear,
+                                            tile_n=None)
+        slack = ap.bf16_rounding_slack(args[0], want[3], got[3], want[1],
+                                       want[2], n_valid).max().item()
+        e_b = pool_err(f"K1-bf16 B N={n}", got[0], want[0],
+                       BF16_RTOL + slack / want[0].abs().max().item())
+        for nm, g, x in (("m", got[1], want[1]), ("s", got[2], want[2]),
+                         ("logits", got[3][:n_valid], want[3][:n_valid])):
+            pool_err(f"K1-bf16 {nm} N={n}", g, x, BF16_RTOL)
+        if not (got[3][n_valid:] == ap.NEG_INF).all():
+            raise AssertionError(f"K1-bf16 N={n}: padded logits not -1e30")
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, ap.attention_pool_fwd_bf16(*args, n_valid, nonlinear))):
+            raise AssertionError(f"K1-bf16 N={n}: a rerun is not bitwise "
+                                 "equal")
+        f32 = ap.attention_pool_fwd(*f32_args, n_valid, nonlinear)
+        vs32 = [((g - x)[:n_valid].abs().max() / x[:n_valid].abs().max())
+                .item() for g, x in zip(got, f32)]
+        worst = max(worst, e_b)
+        iters = 20 if n <= 65536 else 5
+        ms = {"kernel": cuda_ms(lambda: ap.attention_pool_fwd_bf16(
+                  *args, n_valid, nonlinear), iters),
+              "plain": cuda_ms(lambda: ap.attention_pool_bf16_plain(
+                  *args, n_valid, nonlinear, tile_n=None), iters),
+              "cast": cuda_ms(lambda: feats.to(bf), iters),
+              "f32": cuda_ms(lambda: ap.attention_pool_fwd(
+                  *f32_args, n_valid, nonlinear), iters)}
+        # the function's operations (q-MLP, logits, B = p^T f) as bf16
+        # products; its bytes: each input read once, each output written once
+        flops = pool_flops(n_valid, ap.ATTN_DIM, nonlinear)["fwd"]
+        bd = bound(nbytes(*args, *got), flops, bf)
+        cast_bd = bound(nbytes(feats, args[0]), 0)
+        log(f"[pool_bf16] N={n} n_valid={n_valid} K={K} C={C} nonlinear="
+            f"{int(nonlinear)}: max_abs_err B {e_b:.3e} (bar {BF16_RTOL} of "
+            f"max|plain| + rounding slack {slack:.2e}; max|B| "
+            f"{want[0].abs().max().item():.3e}), m, s, logits within "
+            f"{BF16_RTOL} of max|plain|, padded logits -1e30, rerun bitwise "
+            f"equal; against the f32 K1 (the bf16 error's size, of max|f32|): "
+            f"B {vs32[0]:.2e}, m {vs32[1]:.2e}, s {vs32[2]:.2e}, logits "
+            f"{vs32[3]:.2e}; ms kernel {ms['kernel']:.4f}, plain "
+            f"{ms['plain']:.4f}, f32 -> bf16 cast of the bag {ms['cast']:.4f} "
+            f"(bound {cast_bd[0]:.4f}), f32 K1 {ms['f32']:.4f}; bound "
+            f"{bd[0]:.4f} ms ({bd[1]}: {flops} flop, {nbytes(*args, *got)} B);"
+            f" {gpu}")
+        if n == 65529:
+            out = {"ms": ms, "bound": bd}
+        del feats, w, qm, args, f32_args, got, want, f32
+        torch.cuda.empty_cache()
+
+    # the path: the giant-bag eval forward with a bf16 feature stream
+    n = 65529
+    torch.manual_seed(7)
+    model = DSMIL(DSMILConfig(feats_size=K, num_classes=C), torch.device("cpu"))
+    feats = torch.randn(n, K, generator=torch.Generator().manual_seed(8)) * 0.5
+    want = ap.fused_bag_forward(model, feats, feats_dtype=bf)
+    f32_want = ap.fused_bag_forward(model, feats)
+    model = model.cuda()
+    dev_feats = feats.cuda()
+    ap.attention_pool_fwd_bf16.launches = 0
+    got = ap.fused_bag_forward(model, dev_feats, feats_dtype=bf)
+    torch.cuda.synchronize()
+    launches = ap.attention_pool_fwd_bf16.launches
+    if launches != 1:
+        raise AssertionError(f"fused_bag_forward(bf16) launched K1-bf16 "
+                             f"{launches} times")
+    # the CPU rounds the weights per 1024-row tile against the running max,
+    # the card against the global max: a weight's two roundings differ by
+    # at most 2^-7 of it, independently from row to row, so the bag logit
+    # d = sum_c sum_n p_nc g_dcn / s_c (g_dcn = sum_k W_dck f_nk) moves with
+    # a standard deviation below sigma_d = 2^-7 sqrt(sum (p_nc g_dcn /
+    # s_c)^2); the bar is 6 sigma_d plus f32 sums (1e-5)
+    model = model.cpu()
+    with torch.no_grad():
+        crit = model.i_classifier.fc(feats).argmax(dim=0)
+        q_max = model.b_classifier.q(feats[crit])
+        w0, b0, w2, b2 = ap._q_weights(model)
+        _, pm, ps, pl = ap.attention_pool_bf16_plain(
+            feats, w0, b0, w2, b2, q_max, n, tile_n=None)
+        g = torch.einsum("nk,dck->ndc", feats.to(bf).float(),
+                         model.b_classifier.fcc.weight)
+        sigma = 2 ** -7 * ((torch.exp(pl - pm) / ps)[:, None, :] * g) \
+            .square().sum(dim=(0, 2)).sqrt()
+        bar = 6 * sigma + 1e-5 * (1 + want[0].abs())
+    gap = (got[0].cpu() - want[0]).abs()
+    if (gap > bar).any() or not torch.isfinite(got[0]).all():
+        raise AssertionError(f"fused_bag_forward(bf16): bag logits "
+                             f"{got[0].tolist()} vs CPU {want[0].tolist()}, "
+                             f"bar {bar.tolist()}")
+    e_max = pool_err("fused_bag_forward(bf16) max instance logits",
+                     got[1].cpu(), want[1], 1e-5)
+    log(f"[pool_bf16] fused_bag_forward(feats_dtype=bfloat16), DSMIL K={K} "
+        f"C={C} nonlinear q, N={n}: K1-bf16 launches {launches}; bag logits "
+        f"{[round(x, 6) for x in got[0].tolist()]} against the CPU's "
+        f"{gap.max().item():.3e} (bar {bar.max().item():.3e}, 6 sigma of the "
+        f"two rounding points' gap: the CPU rounds per 1024-row tile), "
+        f"against the f32 forward "
+        f"{(got[0].cpu() - f32_want[0]).abs().max().item():.3e}; max instance "
+        f"logits {e_max:.1e} (rtol 1e-5); {gpu}")
+    out.update(launches=launches, err=worst)
+    return out
+
+
 def synthetic_bags(sizes, seed: int, k: int = K, c: int = C):
     """Bags whose positives hold witness instances shifted along a class
     direction, so that training has a signal to find."""
@@ -1320,6 +1463,127 @@ def phase_compute_feats(gpu: str) -> int:
             f"CSVs: exit 0 in {time.perf_counter() - t0:.2f} s; "
             f"{'; '.join(final)}")
     return k5
+
+
+def pipeline_slides(root: str, seed: int) -> int:
+    """PL_CLASSES x PL_SLIDES two-page TIFFs under root/WSI/demo/<class>/;
+    returns the slide count."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    t = PL_TISSUE
+    for cls in ("tumor", "normal")[:PL_CLASSES]:
+        d = os.path.join(root, "WSI", "demo", cls)
+        os.makedirs(d)
+        for i in range(PL_SLIDES):
+            img = np.full((PL_SIDE, PL_SIDE, 3), 255, np.uint8)
+            if cls == "tumor":
+                img[:t, :t] = (rng.random((t, t, 3)) * 180 + 20).astype(np.uint8)
+            else:
+                tex = rng.random((t, t, 3)) * 60 + 120
+                tex[..., 1] += 40
+                img[:t, :t] = np.clip(tex, 0, 255).astype(np.uint8)
+            page = Image.fromarray(img)
+            page.save(os.path.join(d, f"{cls}{i}.tif"), save_all=True,
+                      append_images=[page.resize((PL_SIDE // 2,) * 2)],
+                      description="|AppMag = 20|")
+    return PL_CLASSES * PL_SLIDES
+
+
+def phase_pipeline(gpu: str) -> dict:
+    """The five-stage pipeline on the card at the embedder's full width
+    (ResNet18-IN, 224^2 tiles, 512 features): python -m
+    tpumil_torch.cli.pipeline --stages tile,simclr as a subprocess, then
+    pipeline.main for feats, train and maps one at a time, with the kernel
+    launches of each stage counted; every stage's artifacts, the resolved
+    YAML's round trip, each stage's wall."""
+    from tpumil_torch.cli import pipeline
+    from tpumil_torch.data.feature_store import read_bag_csv, read_master_csv
+    from tpumil_torch.io.config import PipelineConfig
+    from tpumil_torch.ops import attention_pool as ap
+    from tpumil_torch.ops.instance_norm import fused_instance_norm
+    from tpumil_torch.ops.stem import fused_stem
+
+    kernels = {"K5": fused_stem, "K4": fused_instance_norm,
+               "K1": ap.attention_pool_fwd, "K2": ap.attention_pool_bwd1,
+               "K3": ap.attention_pool_bwd2}
+    walls, counts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        slides = pipeline_slides(tmp, 11)
+        with open(os.path.join(tmp, "exp.yaml"), "w") as f:
+            f.write("dataset: demo\n"
+                    "magnifications: [0]\n"
+                    "tiler:\n  tile_size: 224\n"
+                    "simclr:\n  batch_size: 32\n  epochs: 1\n"
+                    "embedder:\n  num_classes: 1\n  batch_size: 64\n"
+                    "  precision: f32\n"
+                    "train:\n  num_classes: 1\n  feats_size: 512\n"
+                    "  num_epochs: 3\n  stop_epochs: 2\n  lr: 0.002\n"
+                    "  verbose: false\n"
+                    "inference:\n  thresholds: [0.0]\n")
+        t0 = time.perf_counter()
+        out = run_cli("tpumil_torch.cli.pipeline",
+                      ["--config", "exp.yaml", "--stages", "tile,simclr"], tmp)
+        walls["tile+simclr (CLI)"] = time.perf_counter() - t0
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            for stage in ("feats", "train", "maps"):
+                for fn in kernels.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                if pipeline.main(["--config", "exp.yaml", "--stages",
+                                  stage]) != 0:
+                    raise AssertionError(f"pipeline stage {stage} failed")
+                torch.cuda.synchronize()
+                walls[stage] = time.perf_counter() - t0
+                counts[stage] = {k: fn.launches for k, fn in kernels.items()}
+        finally:
+            os.chdir(cwd)
+        tiles = [os.path.join(r, x) for r, _, fs in
+                 os.walk(os.path.join(tmp, "WSI", "demo", "single"))
+                 for x in fs if x.endswith(".jpeg")]
+        bags = read_master_csv(os.path.join(tmp, "datasets", "demo",
+                                            "demo.csv"))
+        feats = [read_bag_csv(os.path.join(tmp, p)) for p, _ in bags]
+        run = os.path.join(tmp, "runs", "demo")
+        folds = [x for x in os.listdir(os.path.join(run, "weights"))
+                 if x.startswith("fold_") and x.endswith(".pth")]
+        maps = [x for x in os.listdir(os.path.join(run, "maps"))
+                if x.endswith(".png")]
+        resolved = os.path.join(run, "resolved_config.yaml")
+        same = PipelineConfig.from_yaml(resolved).to_dict() == \
+            PipelineConfig.from_yaml(os.path.join(tmp, "exp.yaml")).to_dict()
+        checks = {
+            "tiles": len(tiles) >= 2 * slides,
+            "simclr model.pth": os.path.exists(os.path.join(
+                run, "simclr", "checkpoints", "model.pth")),
+            "a bag CSV per slide, 512 finite features": len(bags) == slides
+            and all(x.shape[1] == 512 and np.isfinite(x).all()
+                    for x in feats),
+            "5 fold_*.pth": len(folds) == 5,
+            "a map per slide": len(maps) == slides,
+            "resolved_config.yaml round-trips": same,
+            "K5 and K4 in feats and maps": all(
+                counts[st]["K5"] > 0 and counts[st]["K4"] > 0
+                for st in ("feats", "maps")),
+        }
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"pipeline: {failed}; launches {counts}; "
+                                 f"{out[-2000:]}")
+        log(f"[pipeline] python -m tpumil_torch.cli.pipeline on {slides} "
+            f"slides of {PL_SIDE}^2 (ResNet18-IN f32, 224^2 tiles, SimCLR 1 "
+            f"epoch at batch 32, 5-fold-cv-standalone-test 3 epochs): "
+            f"{len(tiles)} tiles, {len(bags)} bags of "
+            f"{min(len(x) for x in feats)}-{max(len(x) for x in feats)} x "
+            f"512, {len(folds)} folds, {len(maps)} maps; "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+            + "; launches "
+            + "; ".join(f"{st}: " + " ".join(f"{k} {v}" for k, v in c.items())
+                        for st, c in counts.items())
+            + f"; {', '.join(checks)}: ok; {gpu}")
+    return {"walls": walls, "counts": counts}
 
 
 def read_pos_csv(path: str):
@@ -2120,6 +2384,8 @@ def main() -> int:
     phase_slide_feats(gpu)
     phase_attention_map(gpu)
     phase_simclr(gpu)
+    pool_bf16 = phase_pool_bf16(gpu)
+    phase_pipeline(gpu)
     kernels = [{
         "name": "fused_instance_norm", "route": "cuda",
         "source": "tpumil_torch/csrc/instance_norm.cu",
@@ -2137,6 +2403,14 @@ def main() -> int:
             "ms": pool["ms"][key], "plain_ms": pool["ms"][key + "_plain"],
             "bound_ms": pool["bound"][key][0],
             "bound_by": pool["bound"][key][1], "library_ms": None})
+    kernels.append({
+        "name": "attention_pool_fwd_bf16", "route": "cuda",
+        "source": "tpumil_torch/csrc/attention_pool_bf16.cu",
+        "replaces": "tpumil/ops/dsmil_pallas.py:39",
+        "launches": pool_bf16["launches"], "max_abs_err": pool_bf16["err"],
+        "ms": pool_bf16["ms"]["kernel"], "plain_ms": pool_bf16["ms"]["plain"],
+        "bound_ms": pool_bf16["bound"][0], "bound_by": pool_bf16["bound"][1],
+        "library_ms": None})
     kernels.append({
         "name": "fused_stem", "route": "cuda",
         "source": "tpumil_torch/csrc/stem.cu",

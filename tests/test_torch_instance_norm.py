@@ -155,8 +155,9 @@ def test_build_is_keyed_by_source_contents(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
-    assert [p.name for p in build.sources()] == ["attention_pool.cu",
-                                                 "instance_norm.cu", "stem.cu"]
+    assert [p.name for p in build.sources()] == [
+        "attention_pool.cu", "attention_pool_bf16.cu", "instance_norm.cu",
+        "stem.cu"]
 
 
 def test_other_device_raises_not_falls_back():

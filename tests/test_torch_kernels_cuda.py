@@ -316,6 +316,69 @@ def test_attention_pool_kernels_are_deterministic(card):
         assert torch.equal(a, b)
 
 
+# K1-bf16 against attention_pool_bf16_plain at the kernel's rounding point
+# (tile_n=None: p against the global max). The logits pass splits h and q
+# into bf16 hi + lo (16 bits of each), so the logits, m and s carry ~1e-5
+# relative error: BF16_BAR of their max. A logit that moves may flip the
+# bf16 rounding of its weight, which moves B by one bf16 spacing of p times
+# |f| / s: B's bar adds ap.bf16_rounding_slack of the two logits.
+BF16_BAR = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_valid,k,c,nonlinear",
+                         [(1000, 1000, 512, 2, True), (1000, 997, 512, 2, False),
+                          (5000, 4097, 128, 3, True), (384, 300, 168, 2, True),
+                          (33, 33, 64, 8, True), (1, 1, 64, 1, False)])
+def test_attention_pool_bf16_kernel_matches_plain(card, n, n_valid, k, c,
+                                                  nonlinear):
+    """K1-bf16: B, m, s and the valid logits within BF16_BAR of max|plain|,
+    the padded logits -1e30 exactly, a rerun bitwise equal."""
+    feats, w, qm, _ = _pool_inputs(card, n, n_valid, k, c, nonlinear)
+    bf = torch.bfloat16
+    args = [feats.to(bf), w[0].to(bf), w[1],
+            None if w[2] is None else w[2].to(bf), w[3], qm.to(bf)]
+    before = ap.attention_pool_fwd_bf16.launches
+    got = ap.attention_pool_fwd_bf16(*args, n_valid, nonlinear)
+    torch.cuda.synchronize()
+    assert ap.attention_pool_fwd_bf16.launches == before + 1
+    want = ap.attention_pool_bf16_plain(*args, n_valid, nonlinear, tile_n=None)
+    slack = ap.bf16_rounding_slack(feats, want[3], got[3], want[1], want[2],
+                                   n_valid)
+    err = (got[0] - want[0]).abs().amax(dim=1)
+    assert (err <= BF16_BAR * want[0].abs().max() + slack + 1e-6).all(), \
+        (err, slack)
+    for name, g, x in zip(("m", "s"), got[1:3], want[1:3]):
+        _close(name, g, x, BF16_BAR)
+    _close("logits", got[3][:n_valid], want[3][:n_valid], BF16_BAR)
+    assert (got[3][n_valid:] == ap.NEG_INF).all()
+    again = ap.attention_pool_fwd_bf16(*args, n_valid, nonlinear)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_bag_forward_bf16_on_card(card):
+    """The bf16 eval forward through K1-bf16 against the CPU's (which rounds
+    the weights per 1024-row tile): the bag logits within 1e-3 of their
+    scale, the max instance logits (f32) at 1e-5."""
+    from tpumil_torch.models.dsmil import DSMIL, DSMILConfig
+
+    torch.manual_seed(0)
+    model = DSMIL(DSMILConfig(feats_size=512, num_classes=2),
+                  torch.device("cpu"))
+    feats = torch.randn(20000, 512) * 0.5
+    want = ap.fused_bag_forward(model, feats, feats_dtype=torch.bfloat16)
+    model = model.to(card)
+    before = ap.attention_pool_fwd_bf16.launches
+    got = ap.fused_bag_forward(model, feats.to(card),
+                               feats_dtype=torch.bfloat16)
+    assert ap.attention_pool_fwd_bf16.launches == before + 1
+    scale = want[0].abs().max().item() + 1.0
+    assert (got[0].cpu() - want[0]).abs().max().item() <= 1e-3 * scale
+    _close("max logits", got[1].cpu(), want[1], 1e-5)
+
+
 @pytest.mark.cuda
 def test_trainable_pool_gradients_match_autograd(card):
     """TrainablePool (K1 forward, K2 + K3 backward) against autograd through

@@ -91,7 +91,23 @@ def test_run_mil_cv_matches_jax(monkeypatch, model):
     """Both packages' run_mil_cv on musk1_mini, 3 folds x 2 epochs, the
     port's fold init replaced by the JAX init of the same key: equal fold
     accuracies and log lines, losses within 1e-4."""
-    kw = dict(num_feats=166, cv_fold=3, num_epochs=2, model=model)
+    _cv_matches_jax(monkeypatch, dict(num_feats=166, cv_fold=3,
+                                      num_epochs=2, model=model))
+
+
+def test_run_mil_cv_without_device_store_matches_jax(monkeypatch):
+    """use_device_store=False keeps the bags on the host in both packages
+    (the port builds no DeviceBagStore): the same folds, accuracies and log
+    lines as JAX's."""
+    def no_store(*args, **kwargs):
+        raise AssertionError("use_device_store=False built a device store")
+
+    monkeypatch.setattr(schemes, "DeviceBagStore", no_store)
+    _cv_matches_jax(monkeypatch, dict(num_feats=166, cv_fold=3, num_epochs=2,
+                                      use_device_store=False))
+
+
+def _cv_matches_jax(monkeypatch, kw):
     want_log, got_log = [], []
     want = jschemes.run_mil_cv(jmb.parse_mil_file(MUSK, 166),
                                jschemes.MILBenchConfig(**kw),

@@ -128,6 +128,8 @@ _PORT_MODULES = [
     "tpumil_torch.ops.augment", "tpumil_torch.models.simclr",
     "tpumil_torch.models.baseline_encoder", "tpumil_torch.utils.prof",
     "tpumil_torch.train.simclr_trainer", "tpumil_torch.cli.simclr_train",
+    "tpumil_torch.io.config", "tpumil_torch.cli.pipeline",
+    "tpumil_torch.cli.download", "tpumil_torch.cli.__main__",
 ]
 # not installed beside the card (sklearn, optax, orbax, pandas), or the
 # package the port replaces

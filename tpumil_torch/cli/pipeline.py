@@ -1,0 +1,223 @@
+"""Single-config pipeline (counterpart of tpumil/cli/pipeline.py): run
+any subset of the five stages from one typed YAML
+(tpumil_torch.io.config.PipelineConfig, the JAX package's YAML keys):
+
+    python -m tpumil_torch.cli.pipeline --config exp.yaml \\
+        --stages tile,simclr,feats,train,maps [--device cuda|cpu]
+
+tile (data/tiler) -> simclr (SimCLRTrainer) -> feats (cli/compute_feats) ->
+train (5-fold-cv-standalone-test over the bag cache) -> maps (BagInference,
+run_attention_maps), on one device: ``--device`` (default cuda, which raises
+without a card) reaches every stage. The multi-device fields
+(``embedder.data_parallel``, ``train.inst_shard``, ``train.data_parallel``)
+belong to the scale-out slice of the port and are refused above 0 before
+any stage runs, with every other check of the JAX pipeline.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import glob
+import os
+import sys
+
+STAGES = ("tile", "simclr", "feats", "train", "maps")
+
+SCALE_OUT = ("the scale-out slice of the port (ROADMAP Queue 1), not ported "
+             "yet; set it to 0 to run on one device")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="tpumil pipeline (PyTorch port)")
+    parser.add_argument("--config", required=True, help="PipelineConfig YAML")
+    parser.add_argument("--stages", default="tile,simclr,feats,train",
+                        help=f"comma-separated subset of {STAGES}")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cuda without a card raises")
+    parser.add_argument("--run_root", default="runs")
+    return parser
+
+
+def validate(parser: argparse.ArgumentParser, cfg, stages) -> None:
+    """Every check that can fail a later stage, before the first one runs
+    (the train and maps stages run after hours of tiling and pretraining):
+    the JAX pipeline's checks and messages, then the refusal of any
+    multi-device field above 0."""
+    for s in stages:
+        if s not in STAGES:
+            parser.error(f"unknown stage {s!r}; valid: {STAGES}")
+    dp = cfg.embedder.data_parallel
+    if dp:
+        if dp < 0:
+            parser.error(f"embedder.data_parallel must be >= 0, got {dp}")
+        if "feats" in stages and cfg.embedder.batch_size % dp:
+            parser.error(
+                f"embedder.batch_size {cfg.embedder.batch_size} must divide "
+                f"by embedder.data_parallel {dp} (feats stage)")
+        if "maps" in stages and cfg.inference.batch_size % dp:
+            parser.error(
+                f"inference.batch_size {cfg.inference.batch_size} must divide "
+                f"by embedder.data_parallel {dp} (maps stage shards patch "
+                f"batches over the same mesh as feats)")
+    device_asks = []
+    if dp and ("feats" in stages or "maps" in stages):
+        device_asks.append(("embedder.data_parallel", dp))
+    if "train" in stages:
+        if cfg.train.inst_shard and cfg.train.data_parallel:
+            parser.error("train.inst_shard and train.data_parallel are "
+                         "mutually exclusive (per-bag vs minibatch "
+                         "optimization)")
+        for name, val in (("train.inst_shard", cfg.train.inst_shard),
+                          ("train.data_parallel", cfg.train.data_parallel)):
+            if val < 0:
+                parser.error(f"{name} must be >= 0, got {val}")
+            if val:
+                device_asks.append((name, val))
+    for name, val in device_asks:
+        parser.error(f"{name} {val}: {SCALE_OUT}")
+
+
+def _embedder_weights(cfg, run_dir: str, simclr_ckpt):
+    """embedder.weights, else this run's SimCLR checkpoint, else the last
+    one under the run's simclr/checkpoints."""
+    weights = cfg.embedder.weights or simclr_ckpt
+    if weights is None:
+        cands = sorted(glob.glob(os.path.join(run_dir, "simclr",
+                                              "checkpoints", "*.pth")))
+        weights = cands[-1] if cands else None
+    if weights is None:
+        raise SystemExit("no embedder weights; run the simclr stage or set "
+                         "embedder.weights")
+    return weights
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+
+    from tpumil_torch.io.config import PipelineConfig
+
+    cfg = PipelineConfig.from_yaml(args.config)
+    stages = [s.strip() for s in args.stages.split(",") if s.strip()]
+    validate(parser, cfg, stages)
+
+    from tpumil_torch.utils.device import select_device
+
+    device = select_device(args.device)
+    run_dir = os.path.join(args.run_root, cfg.dataset)
+    os.makedirs(run_dir, exist_ok=True)
+    cfg.to_yaml(os.path.join(run_dir, "resolved_config.yaml"))
+
+    simclr_ckpt = None
+    if "tile" in stages:
+        from tpumil_torch.data.tiler import tile_dataset
+
+        print(f"== stage: tile ({cfg.dataset}, mags {cfg.magnifications})")
+        tile_dataset(cfg.wsi_root, cfg.dataset, cfg.magnifications, cfg.tiler,
+                     slide_format="svs")
+        # also pick up .tif slides like the reference's glob patterns
+        tile_dataset(cfg.wsi_root, cfg.dataset, cfg.magnifications, cfg.tiler,
+                     slide_format="tif")
+
+    if "simclr" in stages:
+        from tpumil_torch.cli.simclr_train import generate_manifest
+        from tpumil_torch.models.simclr import SimCLRConfig
+        from tpumil_torch.train.simclr_trainer import SimCLRTrainer
+
+        print("== stage: simclr")
+        multiscale = 1 if len(cfg.magnifications) > 1 else 0
+        # level is only consulted for multiscale manifests (simclr/run.py:8-19)
+        paths = generate_manifest(cfg.wsi_root, cfg.dataset, "low", multiscale)
+        if not paths:
+            raise SystemExit("no patches found; run the tile stage first")
+        if cfg.embedder.backbone not in ("resnet18", "resnet50"):
+            raise SystemExit(
+                f"SimCLR pretraining supports resnet18/resnet50 (the reference "
+                f"too, simclr/models/resnet_simclr.py:10-11); configured "
+                f"embedder.backbone={cfg.embedder.backbone!r} would not load "
+                f"back positionally. Set embedder.weights to pretrain elsewhere.")
+        trainer = SimCLRTrainer(SimCLRConfig(base_model=cfg.embedder.backbone),
+                                cfg.simclr, device=device)
+        out = trainer.fit(paths, os.path.join(run_dir, "simclr"))
+        simclr_ckpt = out["checkpoint"]
+
+    if "feats" in stages:
+        print("== stage: feats")
+        weights = _embedder_weights(cfg, run_dir, simclr_ckpt)
+        from tpumil_torch.cli import compute_feats as cf
+
+        cf_args = ["--dataset", cfg.dataset, "--num_classes",
+                   str(cfg.embedder.num_classes), "--batch_size",
+                   str(cfg.embedder.batch_size), "--num_workers",
+                   str(cfg.embedder.num_workers), "--backbone",
+                   cfg.embedder.backbone, "--norm_layer", cfg.embedder.norm_layer,
+                   "--magnification", cfg.embedder.magnification,
+                   "--weights", weights, "--wsi_root", cfg.wsi_root,
+                   "--out_root", cfg.datasets_root, "--patch_size",
+                   str(cfg.embedder.patch_size), "--precision",
+                   cfg.embedder.precision, "--tree_fusion",
+                   cfg.embedder.tree_fusion, "--device", args.device]
+        if not cfg.embedder.space_to_depth:
+            cf_args += ["--no-space_to_depth"]
+        if cfg.embedder.weights_high:
+            cf_args += ["--weights_high", cfg.embedder.weights_high]
+        if cfg.embedder.weights_low:
+            cf_args += ["--weights_low", cfg.embedder.weights_low]
+        cf.main(cf_args)
+
+    if "train" in stages:
+        print(f"== stage: train ({cfg.train.model}, "
+              f"{cfg.train.num_epochs} epochs)")
+        from tpumil_torch.data.feature_store import BagCache, read_master_csv
+        from tpumil_torch.train import schemes
+
+        bags_csv = os.path.join(cfg.datasets_root, cfg.dataset,
+                                cfg.dataset + ".csv")
+        cache = BagCache(os.path.join(run_dir, "bag_cache"))
+        cache.build(read_master_csv(bags_csv), cfg.train.num_classes,
+                    dataset=cfg.dataset, seed=cfg.train.seed)
+        schemes.run_5fold_cv_standalone_test(
+            cache.load_all(), dataclasses.replace(cfg.train, device=device),
+            save_dir=os.path.join(run_dir, "weights"))
+
+    if "maps" in stages:
+        print("== stage: maps")
+        from tpumil_torch.cli.attention_map import load_milnet
+        from tpumil_torch.infer.heatmap import BagInference, run_attention_maps
+
+        agg = sorted(glob.glob(os.path.join(run_dir, "weights", "fold_*.pth")))
+        if not agg:
+            raise SystemExit("no trained aggregator; run the train stage first")
+        emb = _embedder_weights(cfg, run_dir, simclr_ckpt)
+        embedder, _, aggregator, model_name = load_milnet(
+            emb, agg[0], cfg.train.num_classes, device,
+            cfg.embedder.norm_layer, backbone=cfg.embedder.backbone,
+            precision=cfg.embedder.precision,
+            # the SAME stem the feats stage embedded (and the aggregator
+            # trained on)
+            space_to_depth=cfg.embedder.space_to_depth)
+        infer = BagInference(embedder, aggregator,
+                             batch_size=cfg.inference.batch_size,
+                             patch_size=cfg.embedder.patch_size,
+                             num_workers=cfg.inference.num_workers,
+                             model=model_name)
+        layout = "pyramid" if len(cfg.magnifications) > 1 else "single"
+        bags_list = sorted(glob.glob(os.path.join(cfg.wsi_root, cfg.dataset,
+                                                  layout, "*", "*")))
+        thres = cfg.inference.thresholds or [0.5] * cfg.train.num_classes
+        names = cfg.inference.class_names or [f"class {c}"
+                                              for c in range(cfg.train.num_classes)]
+        run_attention_maps(
+            infer, bags_list, thres, names, os.path.join(run_dir, "maps"),
+            # tiles were written by the tiler stage in cfg.tiler.format
+            patch_ext=cfg.inference.patch_ext or cfg.tiler.format,
+            score_path=os.path.join(run_dir, "scores")
+            if cfg.inference.export_scores else None,
+            average=cfg.inference.average, seed=cfg.train.seed)
+    print("pipeline done.")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

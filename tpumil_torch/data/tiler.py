@@ -40,6 +40,10 @@ class TilerConfig:
     objective: float = 20.0       # :254
     format: str = "jpeg"          # :247
     max_retries: int = 2
+    # Encode full-size JPEG tiles with the native libjpeg writer
+    # (utils/native.encode_jpeg) where it is built, else with PIL. Off by
+    # default: the two encoders' bytes differ.
+    native_encode: bool = False
 
 
 @dataclasses.dataclass
@@ -84,6 +88,13 @@ def edge_energy(tile: np.ndarray, tile_size: int) -> float:
 
 def _save_tile(tile: np.ndarray, path: str, cfg: TilerConfig) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
+    if (cfg.native_encode and cfg.format in ("jpeg", "jpg")
+            and tile.shape[:2] == (cfg.tile_size, cfg.tile_size)):
+        from tpumil_torch.utils import native
+
+        if native.available():
+            native.encode_jpeg(tile, path, cfg.quality)
+            return
     from PIL import Image
 
     im = Image.fromarray(tile)

@@ -58,6 +58,9 @@ class MILBenchConfig:
     seed: int = 0
     verbose: bool = True
     model: str = "dsmil"              # train_mil.py:119
+    # keep the dataset on the device as one flat tensor, folds as device
+    # gathers; False keeps the bags on the host
+    use_device_store: bool = True
     # "orthogonal" (the framework's one init, train_tcga.py:229-233) or
     # "torch_default" (nn.Linear/Conv1d defaults, what train_mil.py trains
     # with; dsmil only)
@@ -115,7 +118,7 @@ def run_mil_cv(bags: List[Bag], cfg: MILBenchConfig,
     accs = []
     indices = list(range(len(bags)))
     # the dataset moves to the device once; folds are device gathers
-    store = _device_store(bags, trainer)
+    store = _global_store(bags, cfg, trainer)
     for k in range(cfg.cv_fold):
         tr_idx, te_idx = cross_validation_split(indices, cfg.cv_fold, k)
         trainer.pos_weight = np.asarray(
@@ -376,7 +379,9 @@ def _device_store(bags, trainer: BagTrainer) -> DeviceBagStore:
     return store
 
 
-def _global_store(bags, cfg: WSITrainConfig, trainer: BagTrainer):
+def _global_store(bags, cfg, trainer: BagTrainer):
+    """The whole dataset's device store, or None when ``cfg`` (a
+    WSITrainConfig or MILBenchConfig) keeps the bags on the host."""
     return _device_store(bags, trainer) if cfg.use_device_store else None
 
 

@@ -114,6 +114,10 @@ def load_library() -> ctypes.CDLL:
             lib.tpumil_instance_norm.restype = i
             lib.tpumil_attention_pool_fwd_scratch.argtypes = [i] * 5
             lib.tpumil_attention_pool_fwd_scratch.restype = ctypes.c_longlong
+            lib.tpumil_attention_pool_fwd_bf16_scratch.argtypes = [i] * 5
+            lib.tpumil_attention_pool_fwd_bf16_scratch.restype = ctypes.c_longlong
+            lib.tpumil_attention_pool_fwd_bf16.argtypes = [p] * 6 + [i] * 5 + [p] * 6
+            lib.tpumil_attention_pool_fwd_bf16.restype = i
             lib.tpumil_attention_pool_bwd1_scratch.argtypes = [i] * 4
             lib.tpumil_attention_pool_bwd1_scratch.restype = ctypes.c_longlong
             lib.tpumil_attention_pool_bwd2_size.argtypes = [i, i]
