@@ -78,11 +78,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   normalization's share of a default step; the trained
                   model.pth through compute_feats' embedder (K5/K4 1/19)
  16. pool_bf16 -- K1-bf16 (the bf16 feature stream of K1) vs its plain
-                  version at K=512, C=2, N up to 262144, its error against
-                  the f32 K1, bitwise reruns, the times of the kernel, the
-                  plain version and the f32 -> bf16 cast of the bag; then
-                  fused_bag_forward(feats_dtype=bfloat16) on a DSMIL at
-                  N=65529 against the CPU, its K1-bf16 launch counted
+                  version at the kernel's rounding points (64-row tiles in
+                  each CTA's range) at K=512, C=2, N up to 262144, its error
+                  against the f32 K1, bitwise reruns, the times of the
+                  kernel (and its share of the bound), the plain version,
+                  the f32 -> bf16 cast of the bag and the f32 K1, ptxas's
+                  registers and spills; then fused_bag_forward(feats_dtype=
+                  bfloat16) on a DSMIL at N=65529 against the CPU, its
+                  K1-bf16 launch counted, timed whole and by part
  17. pipeline  -- eight synthetic two-page TIFF slides of 1024^2: python -m
                   tpumil_torch.cli.pipeline --stages tile,simclr, then the
                   feats, train and maps stages through pipeline.main with
@@ -97,6 +100,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -139,9 +143,9 @@ K2_FFMA_MS = {1000: 0.078, 65529: 0.833, 262144: 3.334}
 # normalize pass), ms at B=128 on an NVIDIA H100 80GB HBM3 at 700 W: f32 in
 # two runs, bf16
 K5_FFMA_MS = {torch.float32: "1.122 / 1.182", torch.bfloat16: "0.965"}
-# K1-bf16 against attention_pool_bf16_plain at the kernel's rounding point
-# (p against the global max): h and q run as bf16 hi + lo (16 bits), so m,
-# s and the logits carry ~1e-5 of their max; B also moves by one bf16
+# K1-bf16 against attention_pool_bf16_plain at the kernel's rounding points
+# (64-row tiles in each CTA's range): h and q run as bf16 hi + lo (16 bits),
+# so m, s and the logits carry ~1e-5 of their max; B also moves by one bf16
 # spacing of a weight times |f| / s wherever a logit's error flips that
 # weight's rounding (ap.bf16_rounding_slack)
 BF16_RTOL = 1e-4
@@ -273,7 +277,8 @@ def phase_device() -> str:
     return gpu
 
 
-def phase_build() -> None:
+def phase_build() -> str:
+    """Build the kernels; returns the compiler's log (ptxas lines)."""
     from tpumil_torch.utils import build
 
     path, seconds, compiler_log = build.build(verbose=True)
@@ -288,6 +293,31 @@ def phase_build() -> None:
         elif "registers" in line or "spill" in line:
             log(f"[build]   ptxas:   {line.strip()}")
     build.load_library()
+    return compiler_log
+
+
+def kernel_name(symbol: str) -> str:
+    """``pool_bf16_kernel<1,2>`` from a mangled kernel symbol of csrc/
+    (``_ZN..._GLOBAL__N__<hash>_<n>_<file>_cu_<hash><len><name>I...E...``)."""
+    tail = symbol.split("_cu_", 1)[-1][8:]
+    m = re.match(r"\d+(\w+?_kernel)(I(?:L\w+?E)+E)?", tail)
+    if not m:
+        return symbol[:40]
+    args = re.findall(r"L\w(\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_of(compiler_log: str, key: str):
+    """ptxas's register, shared-memory and spill lines of the kernels whose
+    mangled name holds ``key``."""
+    out, keep = [], False
+    for line in compiler_log.splitlines():
+        if "Function properties for" in line:
+            keep = key in line
+            name = kernel_name(line.split("for", 1)[1].strip())
+        elif keep and ("registers" in line or "spill" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def two_read_in(x: torch.Tensor, relu: bool) -> torch.Tensor:
@@ -813,29 +843,55 @@ def phase_pool(gpu: str) -> dict:
     return {"err": worst, "ms": times[65529], "bound": bounds[65529]}
 
 
-def phase_pool_bf16(gpu: str) -> dict:
-    """K1-bf16 against its plain version at POOL_N, its error against the
-    f32 K1 on the same bag, bitwise reruns, times (the kernel, the plain
-    version, the f32 -> bf16 cast of the bag, the f32 K1) and the bound;
-    then the path: fused_bag_forward(feats_dtype=bfloat16) on a DSMIL at
-    the paper's width and N = 65529, its launches counted, against the
-    CPU's forward."""
+def aligned_zero_fill(feats, w0, dtype):
+    """``ops/attention_pool._aligned`` before its one-copy cast (a
+    zero-filled bag, then a copy into it): the cast's yardstick."""
+    k = feats.shape[1]
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    kp = -(-k // per) * per
+    if kp == k and feats.data_ptr() % 16 == 0 and feats.dtype == dtype:
+        return feats, w0.to(dtype)
+    padded = feats.new_zeros((feats.shape[0], kp), dtype=dtype)
+    padded[:, :k] = feats
+    if kp != k:
+        w0 = F.pad(w0, (0, kp - k))
+    return padded, w0.to(dtype)
+
+
+def phase_pool_bf16(gpu: str, compiler_log: str) -> dict:
+    """K1-bf16 against its plain version at the kernel's rounding points
+    (64-row tiles, the CTA ranges of bf16_segment_rows) at POOL_N, its error
+    against the f32 K1 on the same bag, bitwise reruns, times (the kernel
+    and its share of the bytes bound, the plain version, the f32 -> bf16
+    cast of the bag, the f32 K1) and ptxas's lines of its kernels; then the
+    path: fused_bag_forward(feats_dtype=bfloat16) on a DSMIL at the paper's
+    width and N = 65529, its launches counted, against the CPU's forward,
+    timed whole and by part, with _aligned's cast beside the zero-fill one."""
     from tpumil_torch.models.dsmil import DSMIL, DSMILConfig
     from tpumil_torch.ops import attention_pool as ap
+    from tpumil_torch.ops.masked import masked_max
+    from tpumil_torch.utils.build import load_library
 
     bf = torch.bfloat16
+    smem = load_library().tpumil_attention_pool_fwd_bf16_smem
+    log(f"[pool_bf16] K1-bf16 kernels (ptxas): "
+        f"{'; '.join(ptxas_of(compiler_log, 'bf16')) or 'not built here'}; "
+        f"dynamic shared memory {smem(1)} B (nonlinear q), {smem(0)} B "
+        f"(linear)")
     worst, out = 0.0, {}
     for i, (n, n_valid, nonlinear) in enumerate(POOL_N):
         feats, w, qm, _ = pool_inputs(n, nonlinear, 40 + i)
         f32_args = (feats, *w, qm)
         args = (feats.to(bf), w[0].to(bf), w[1],
                 None if w[2] is None else w[2].to(bf), w[3], qm.to(bf))
+        rows = ap.bf16_segment_rows(feats.device, n_valid)
+        points = dict(tile_n=ap.BF16_TILE, segment_rows=rows)
         got = ap.attention_pool_fwd_bf16(*args, n_valid, nonlinear)
         torch.cuda.synchronize()
         want = ap.attention_pool_bf16_plain(*args, n_valid, nonlinear,
-                                            tile_n=None)
+                                            **points)
         slack = ap.bf16_rounding_slack(args[0], want[3], got[3], want[1],
-                                       want[2], n_valid).max().item()
+                                       want[2], n_valid, **points).max().item()
         e_b = pool_err(f"K1-bf16 B N={n}", got[0], want[0],
                        BF16_RTOL + slack / want[0].abs().max().item())
         for nm, g, x in (("m", got[1], want[1]), ("s", got[2], want[2]),
@@ -852,10 +908,14 @@ def phase_pool_bf16(gpu: str) -> dict:
                 .item() for g, x in zip(got, f32)]
         worst = max(worst, e_b)
         iters = 20 if n <= 65536 else 5
-        ms = {"kernel": cuda_ms(lambda: ap.attention_pool_fwd_bf16(
-                  *args, n_valid, nonlinear), iters),
+        # the kernel's device time from a CUDA graph of its launches: back to
+        # back from Python, the wrapper's host time (~0.08 ms) hides it
+        run = lambda: ap.attention_pool_fwd_bf16(  # noqa: E731
+            *args, n_valid, nonlinear)
+        ms = {"kernel": graph_ms(run),
+              "events": cuda_ms(run, 5 * iters),
               "plain": cuda_ms(lambda: ap.attention_pool_bf16_plain(
-                  *args, n_valid, nonlinear, tile_n=None), iters),
+                  *args, n_valid, nonlinear, **points), iters),
               "cast": cuda_ms(lambda: feats.to(bf), iters),
               "f32": cuda_ms(lambda: ap.attention_pool_fwd(
                   *f32_args, n_valid, nonlinear), iters)}
@@ -865,17 +925,20 @@ def phase_pool_bf16(gpu: str) -> dict:
         bd = bound(nbytes(*args, *got), flops, bf)
         cast_bd = bound(nbytes(feats, args[0]), 0)
         log(f"[pool_bf16] N={n} n_valid={n_valid} K={K} C={C} nonlinear="
-            f"{int(nonlinear)}: max_abs_err B {e_b:.3e} (bar {BF16_RTOL} of "
-            f"max|plain| + rounding slack {slack:.2e}; max|B| "
-            f"{want[0].abs().max().item():.3e}), m, s, logits within "
+            f"{int(nonlinear)}, {rows} rows per CTA: max_abs_err B {e_b:.3e} "
+            f"(bar {BF16_RTOL} of max|plain| + rounding slack {slack:.2e}; "
+            f"max|B| {want[0].abs().max().item():.3e}), m, s, logits within "
             f"{BF16_RTOL} of max|plain|, padded logits -1e30, rerun bitwise "
             f"equal; against the f32 K1 (the bf16 error's size, of max|f32|): "
             f"B {vs32[0]:.2e}, m {vs32[1]:.2e}, s {vs32[2]:.2e}, logits "
-            f"{vs32[3]:.2e}; ms kernel {ms['kernel']:.4f}, plain "
-            f"{ms['plain']:.4f}, f32 -> bf16 cast of the bag {ms['cast']:.4f} "
-            f"(bound {cast_bd[0]:.4f}), f32 K1 {ms['f32']:.4f}; bound "
-            f"{bd[0]:.4f} ms ({bd[1]}: {flops} flop, {nbytes(*args, *got)} B);"
-            f" {gpu}")
+            f"{vs32[3]:.2e}; ms kernel {ms['kernel']:.4f} by CUDA graph "
+            f"({bd[0] / ms['kernel']:.1%} of the bound, "
+            f"{nbytes(*args, *got) / ms['kernel'] / 1e6:.0f} GB/s; "
+            f"{ms['events']:.4f} by events around back-to-back calls), plain "
+            f"{ms['plain']:.4f}, f32 -> bf16 cast of the bag "
+            f"{ms['cast']:.4f} (bound {cast_bd[0]:.4f}), f32 K1 {ms['f32']:.4f};"
+            f" bound {bd[0]:.4f} ms ({bd[1]}: {flops} flop, "
+            f"{nbytes(*args, *got)} B); {gpu}")
         if n == 65529:
             out = {"ms": ms, "bound": bd}
         del feats, w, qm, args, f32_args, got, want, f32
@@ -897,19 +960,38 @@ def phase_pool_bf16(gpu: str) -> dict:
     if launches != 1:
         raise AssertionError(f"fused_bag_forward(bf16) launched K1-bf16 "
                              f"{launches} times")
+    # the forward whole and by part (the parts in fused_bag_forward's order)
+    with torch.no_grad():
+        w0, b0, w2, b2 = ap._q_weights(model)
+        c_logits, mask, q_max = ap._instance_stream(model, dev_feats, n)
+        fb, w0b = ap._aligned(dev_feats, w0, bf)
+        pool_args = (fb, w0b, b0, w2.to(bf), b2, q_max.to(bf), n)
+        bemb = ap.attention_pool_fwd_bf16(*pool_args)[0]
+        parts = {
+            "whole": lambda: ap.fused_bag_forward(model, dev_feats,
+                                                  feats_dtype=bf),
+            "instance stream": lambda: ap._instance_stream(model, dev_feats,
+                                                           n),
+            "_aligned": lambda: ap._aligned(dev_feats, w0, bf),
+            "K1-bf16": lambda: ap.attention_pool_fwd_bf16(*pool_args),
+            "head": lambda: (ap._bag_logits(model, bemb),
+                             masked_max(c_logits, mask, dim=0)),
+            "_aligned by zero fill": lambda: aligned_zero_fill(dev_feats, w0,
+                                                               bf)}
+        path_ms = {k: cuda_ms(fn, 20) for k, fn in parts.items()}
     # the CPU rounds the weights per 1024-row tile against the running max,
-    # the card against the global max: a weight's two roundings differ by
-    # at most 2^-7 of it, independently from row to row, so the bag logit
-    # d = sum_c sum_n p_nc g_dcn / s_c (g_dcn = sum_k W_dck f_nk) moves with
-    # a standard deviation below sigma_d = 2^-7 sqrt(sum (p_nc g_dcn /
-    # s_c)^2); the bar is 6 sigma_d plus f32 sums (1e-5)
+    # the card per 64-row tile in each CTA's range: a weight's two roundings
+    # differ by at most 2^-7 of it, independently from row to row, so the
+    # bag logit d = sum_c sum_n p_nc g_dcn / s_c (g_dcn = sum_k W_dck f_nk)
+    # moves with a standard deviation below sigma_d = 2^-7 sqrt(sum (p_nc
+    # g_dcn / s_c)^2); the bar is 6 sigma_d plus f32 sums (1e-5)
     model = model.cpu()
     with torch.no_grad():
         crit = model.i_classifier.fc(feats).argmax(dim=0)
         q_max = model.b_classifier.q(feats[crit])
         w0, b0, w2, b2 = ap._q_weights(model)
         _, pm, ps, pl = ap.attention_pool_bf16_plain(
-            feats, w0, b0, w2, b2, q_max, n, tile_n=None)
+            feats, w0, b0, w2, b2, q_max, n)
         g = torch.einsum("nk,dck->ndc", feats.to(bf).float(),
                          model.b_classifier.fcc.weight)
         sigma = 2 ** -7 * ((torch.exp(pl - pm) / ps)[:, None, :] * g) \
@@ -929,7 +1011,8 @@ def phase_pool_bf16(gpu: str) -> dict:
         f"two rounding points' gap: the CPU rounds per 1024-row tile), "
         f"against the f32 forward "
         f"{(got[0].cpu() - f32_want[0]).abs().max().item():.3e}; max instance "
-        f"logits {e_max:.1e} (rtol 1e-5); {gpu}")
+        f"logits {e_max:.1e} (rtol 1e-5); device ms on the f32 bag: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in path_ms.items()) + f"; {gpu}")
     out.update(launches=launches, err=worst)
     return out
 
@@ -2370,7 +2453,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     gpu = phase_device()
-    phase_build()
+    compiler_log = phase_build()
     k4 = phase_kernel(gpu)
     phase_embedder(gpu)
     phase_golden()
@@ -2384,7 +2467,7 @@ def main() -> int:
     phase_slide_feats(gpu)
     phase_attention_map(gpu)
     phase_simclr(gpu)
-    pool_bf16 = phase_pool_bf16(gpu)
+    pool_bf16 = phase_pool_bf16(gpu, compiler_log)
     phase_pipeline(gpu)
     kernels = [{
         "name": "fused_instance_norm", "route": "cuda",

@@ -316,12 +316,12 @@ def test_attention_pool_kernels_are_deterministic(card):
         assert torch.equal(a, b)
 
 
-# K1-bf16 against attention_pool_bf16_plain at the kernel's rounding point
-# (tile_n=None: p against the global max). The logits pass splits h and q
-# into bf16 hi + lo (16 bits of each), so the logits, m and s carry ~1e-5
-# relative error: BF16_BAR of their max. A logit that moves may flip the
-# bf16 rounding of its weight, which moves B by one bf16 spacing of p times
-# |f| / s: B's bar adds ap.bf16_rounding_slack of the two logits.
+# K1-bf16 against attention_pool_bf16_plain at the kernel's rounding points
+# (64-row tiles in each CTA's range of bf16_segment_rows rows). The q-MLP
+# splits h and q into bf16 hi + lo (16 bits of each), so the logits, m and s
+# carry ~1e-5 relative error: BF16_BAR of their max. A logit that moves may
+# flip the bf16 rounding of its weight, which moves B by one bf16 spacing of
+# p times |f| / s: B's bar adds ap.bf16_rounding_slack of the two logits.
 BF16_BAR = 1e-4
 
 
@@ -329,11 +329,25 @@ BF16_BAR = 1e-4
 @pytest.mark.parametrize("n,n_valid,k,c,nonlinear",
                          [(1000, 1000, 512, 2, True), (1000, 997, 512, 2, False),
                           (5000, 4097, 128, 3, True), (384, 300, 168, 2, True),
-                          (33, 33, 64, 8, True), (1, 1, 64, 1, False)])
+                          (33, 33, 64, 8, True), (1, 1, 64, 1, False),
+                          # K = 1024, the multiscale width: 2 tiles per CTA,
+                          # the last CTA's range ends in a ragged tile
+                          (9000, 8950, 1024, 2, True),
+                          # the nonlinear q's resident limit (17 boxes of
+                          # 64), C = 3
+                          (2000, 1937, 1088, 3, True),
+                          # wider than the resident tile: the pool re-reads
+                          # the rows from L2
+                          (3000, 2900, 2048, 2, True),
+                          # the linear q's resident limit (21 boxes), C = 8
+                          (4000, 3900, 1344, 8, False),
+                          # C = 8 over 3 tiles per CTA, a ragged last tile
+                          (20000, 19937, 512, 8, True)])
 def test_attention_pool_bf16_kernel_matches_plain(card, n, n_valid, k, c,
                                                   nonlinear):
-    """K1-bf16: B, m, s and the valid logits within BF16_BAR of max|plain|,
-    the padded logits -1e30 exactly, a rerun bitwise equal."""
+    """K1-bf16: B, m, s and the valid logits within BF16_BAR of max|plain|
+    at the kernel's partition, the padded logits -1e30 exactly, a rerun
+    bitwise equal."""
     feats, w, qm, _ = _pool_inputs(card, n, n_valid, k, c, nonlinear)
     bf = torch.bfloat16
     args = [feats.to(bf), w[0].to(bf), w[1],
@@ -342,9 +356,11 @@ def test_attention_pool_bf16_kernel_matches_plain(card, n, n_valid, k, c,
     got = ap.attention_pool_fwd_bf16(*args, n_valid, nonlinear)
     torch.cuda.synchronize()
     assert ap.attention_pool_fwd_bf16.launches == before + 1
-    want = ap.attention_pool_bf16_plain(*args, n_valid, nonlinear, tile_n=None)
+    points = dict(tile_n=ap.BF16_TILE,
+                  segment_rows=ap.bf16_segment_rows(card, n_valid))
+    want = ap.attention_pool_bf16_plain(*args, n_valid, nonlinear, **points)
     slack = ap.bf16_rounding_slack(feats, want[3], got[3], want[1], want[2],
-                                   n_valid)
+                                   n_valid, **points)
     err = (got[0] - want[0]).abs().amax(dim=1)
     assert (err <= BF16_BAR * want[0].abs().max() + slack + 1e-6).all(), \
         (err, slack)
@@ -355,6 +371,19 @@ def test_attention_pool_bf16_kernel_matches_plain(card, n, n_valid, k, c,
     again = ap.attention_pool_fwd_bf16(*args, n_valid, nonlinear)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_attention_pool_bf16_rejects_misaligned_w2(card):
+    """K1-bf16 loads W2 by TMA too: a W2 view off a 16-byte boundary is
+    refused, not read wrongly."""
+    feats, w, qm, _ = _pool_inputs(card, 64, 64, 128, 2, True)
+    bf = torch.bfloat16
+    base = torch.zeros(128 * 128 + 1, device=card, dtype=bf)
+    w2 = base[1:].view(128, 128).copy_(w[2])
+    with pytest.raises(ValueError, match="16-byte"):
+        ap.attention_pool_fwd_bf16(feats.to(bf), w[0].to(bf), w[1], w2,
+                                   w[3], qm.to(bf), 64)
 
 
 @pytest.mark.cuda

@@ -50,6 +50,7 @@ from tpumil_torch.ops.masked import NEG_INF, masked_argmax, masked_max
 ATTN_DIM = 128
 SCALE = 1.0 / math.sqrt(ATTN_DIM)
 MAX_CLASSES = 8  # the kernels' compile-time bound (CMAX)
+BF16_TILE = 64  # rows per tile of K1-bf16's card kernel
 
 
 # -- plain PyTorch versions --------------------------------------------------
@@ -90,30 +91,32 @@ def attention_pool_plain(feats, w0, b0, w2, b2, q_max, n_valid: int,
     return a.T @ feats, m, s, logits
 
 
-def attention_pool_bf16_plain(feats, w0, b0, w2, b2, q_max, n_valid: int,
-                              nonlinear: bool = True,
-                              tile_n: Optional[int] = 1024):
-    """K1-bf16's plain version: ``(B [C, K], m [C], s [C], logits [N, C])``
-    in f32. feats, W0, W2 and q_max are rounded to bf16; h, q and the logits
-    stay f32 (a product of an f32 and a bf16 operand runs in f32, as in the
-    JAX package on the CPU). The softmax weights ``p = exp(l - m)`` are
-    rounded to bf16 before they pool f, and ``s`` sums the unrounded ``p``.
-    ``tile_n`` rows at a time, ``m`` is the running max after each tile and
-    the accumulators are rescaled by ``exp(m_old - m_new)``, as the TPU
-    kernel's online softmax does; ``tile_n=None`` rounds against the global
-    max, as the card's two-pass kernel does."""
-    def rounded(t):
-        return t.to(torch.bfloat16).float()
+def bf16_partition(n_valid: int, sms: int) -> int:
+    """K1-bf16's rows per CTA on a card of ``sms`` SMs: the least multiple
+    of ``BF16_TILE`` whose ranges ``[g rpc, (g + 1) rpc)`` cover ``[0,
+    n_valid)`` in at most ``sms`` pieces (one persistent CTA per SM)."""
+    tiles = -(-int(n_valid) // BF16_TILE)
+    return -(-tiles // int(sms)) * BF16_TILE
 
-    f = rounded(feats)
-    _, _, _, logits, valid = _recompute(
-        f, rounded(w0), b0.float(), None if w2 is None else rounded(w2),
-        None if b2 is None else b2.float(), rounded(q_max), n_valid, nonlinear)
-    if tile_n is None:
-        m = logits.amax(dim=0)
-        p = torch.where(valid, torch.exp(logits - m), 0.0)
-        s = p.sum(dim=0)
-        return rounded(p).T @ f / s.clamp_min(1e-30)[:, None], m, s, logits
+
+def bf16_segment_rows(device: torch.device, n_valid: int) -> int:
+    """The rows per CTA that K1-bf16 takes on ``device``'s card."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return bf16_partition(n_valid, sms)
+
+
+def _segments(n: int, n_valid: int, segment_rows: Optional[int]):
+    """Row ranges ``[g sr, (g + 1) sr)`` over the valid rows, the last one
+    running on to N (its rows >= n_valid weigh 0); one range of every row
+    when ``segment_rows`` is None."""
+    sr = n if segment_rows is None else int(segment_rows)
+    return [(r0, r0 + sr if r0 + sr < n_valid else n)
+            for r0 in range(0, n_valid, sr)]
+
+
+def _online_pool(logits, f, tile_n: int, rounded):
+    """One segment's online softmax, ``tile_n`` rows at a time: (acc [C, K],
+    m [C], s [C]) as the TPU kernel's grid carries them."""
     c, k = logits.shape[1], f.shape[1]
     m = torch.full((c,), NEG_INF, device=f.device)
     s = torch.zeros((c,), device=f.device)
@@ -126,27 +129,79 @@ def attention_pool_bf16_plain(feats, w0, b0, w2, b2, q_max, n_valid: int,
         m = m_new
         s = s * corr + p.sum(dim=0)
         acc = acc * corr[:, None] + rounded(p).T @ f[r0:r0 + tile_n]
-    return acc / s.clamp_min(1e-30)[:, None], m, s, logits
+    return acc, m, s
 
 
-def bf16_rounding_slack(feats, logits, other_logits, m, s, n_valid: int
-                        ) -> torch.Tensor:
+def attention_pool_bf16_plain(feats, w0, b0, w2, b2, q_max, n_valid: int,
+                              nonlinear: bool = True, tile_n: int = 1024,
+                              segment_rows: Optional[int] = None):
+    """K1-bf16's plain version: ``(B [C, K], m [C], s [C], logits [N, C])``
+    in f32. feats, W0, W2 and q_max are rounded to bf16; h, q and the logits
+    stay f32 (a product of an f32 and a bf16 operand runs in f32, as in the
+    JAX package on the CPU). The softmax weights ``p = exp(l - m)`` are
+    rounded to bf16 before they pool f, and ``s`` sums the unrounded ``p``.
+    ``tile_n`` rows at a time, ``m`` is the running max after each tile and
+    the accumulators are rescaled by ``exp(m_old - m_new)``, as the TPU
+    kernel's online softmax does. The rows run in segments of
+    ``segment_rows`` (None: one segment), each with its own online softmax
+    from its first row, merged as ``m = max m_g``, ``s = sum s_g
+    exp(m_g - m)``, ``B = sum acc_g exp(m_g - m) / s``. The defaults are
+    the TPU kernel's rounding points (the CPU wrapper's); ``tile_n=
+    BF16_TILE, segment_rows=bf16_segment_rows(...)`` the card kernel's."""
+    def rounded(t):
+        return t.to(torch.bfloat16).float()
+
+    f = rounded(feats)
+    _, _, _, logits, _ = _recompute(
+        f, rounded(w0), b0.float(), None if w2 is None else rounded(w2),
+        None if b2 is None else b2.float(), rounded(q_max), n_valid, nonlinear)
+    parts = [_online_pool(logits[r0:r1], f[r0:r1], tile_n, rounded)
+             for r0, r1 in _segments(f.shape[0], n_valid, segment_rows)]
+    accs, ms, ss = (torch.stack(t) for t in zip(*parts))
+    m = ms.amax(dim=0)
+    w = torch.exp(ms - m)
+    s = (ss * w).sum(dim=0)
+    return ((accs * w[:, :, None]).sum(dim=0) / s.clamp_min(1e-30)[:, None],
+            m, s, logits)
+
+
+def _row_max(logits, n_valid, tile_n, segment_rows):
+    """The running max [N, C] against which each row's weight is rounded."""
+    out = torch.empty_like(logits)
+    for r0, r1 in _segments(logits.shape[0], n_valid, segment_rows):
+        m = torch.full((logits.shape[1],), NEG_INF, device=logits.device)
+        for t0 in range(r0, r1, tile_n):
+            m = torch.maximum(m, logits[t0:min(t0 + tile_n, r1)].amax(dim=0))
+            out[t0:min(t0 + tile_n, r1)] = m
+    return out
+
+
+def bf16_rounding_slack(feats, logits, other_logits, m, s, n_valid: int,
+                        tile_n: int = 1024,
+                        segment_rows: Optional[int] = None) -> torch.Tensor:
     """How far two computations of K1-bf16's B [C, K] may lie apart through
     the bf16 rounding of the softmax weights alone, per class [C]: a weight
-    ``p = exp(l - m)`` whose value lies within ``p |l - l'|`` (plus a few
-    f32 ulps of exp) of a bf16 rounding midpoint may round to the other
-    neighbour in the other computation, which moves B[c] by one bf16
-    spacing of p times the row's largest |f|, over s. ``logits`` and
-    ``other_logits`` are the two computations' logits [N, C]; rows
-    ``>= n_valid`` are padding."""
-    lg = logits[:n_valid].float()
-    p = torch.exp(lg - m)
+    ``p = exp(l - m_run)``, rounded against the running max of its tile
+    (the rounding points ``tile_n`` and ``segment_rows`` of
+    ``attention_pool_bf16_plain``), whose value lies within ``p (|l - l'| +
+    |m_run - m_run'|)`` (plus a few f32 ulps of exp) of a bf16 rounding
+    midpoint may round to the other neighbour in the other computation,
+    which moves B[c] by one bf16 spacing of p, times ``exp(m_run - m)`` and
+    the row's largest |f|, over s. ``logits`` and ``other_logits`` are the
+    two computations' logits [N, C]; rows ``>= n_valid`` are padding."""
+    lg = logits.float()
+    other = other_logits.float()
+    mr = _row_max(lg, n_valid, tile_n, segment_rows)[:n_valid]
+    drift = (_row_max(other, n_valid, tile_n, segment_rows)[:n_valid]
+             - mr).abs()
+    lg, other = lg[:n_valid], other[:n_valid]
+    p = torch.exp(lg - mr)
     lower = (p.view(torch.int32) & -65536).view(torch.float32)  # truncated
     spacing = torch.ldexp(torch.ones_like(p), torch.frexp(p).exponent - 8)
     near = (p - (lower + spacing / 2)).abs() <= p * (
-        (other_logits[:n_valid].float() - lg).abs() + 1e-6)
+        (other - lg).abs() + drift + 1e-6)
     fmax = feats[:n_valid].float().abs().amax(dim=1, keepdim=True)
-    return (near * spacing * fmax).sum(dim=0) / s
+    return (near * spacing * torch.exp(mr - m) * fmax).sum(dim=0) / s
 
 
 def attention_pool_bwd1_plain(feats, logits, m, s, db, n_valid: int):
@@ -201,8 +256,10 @@ def _check(feats, n_valid, nonlinear, w0, b0, w2, b2, q_max, *stats,
         want += [(w2, (d, d), stream), (b2, (d,), f32)]
     want += [(t, shape, f32)
              for t, shape in zip(stats, [(c,), (c,), (c, k), (c,)])]
-    # feats, W0 and (K3) dB are copied to shared memory as 16-byte vectors
-    _validate(feats, n_valid, c, want, [feats, w0] + list(stats[2:3]))
+    # feats, W0, (K3) dB and (K1-bf16's TMA loads) W2 are copied to shared
+    # memory as 16-byte vectors
+    tma = [w2] if stream == torch.bfloat16 and nonlinear else []
+    _validate(feats, n_valid, c, want, [feats, w0] + list(stats[2:3]) + tma)
 
 
 def _check_bwd1(feats, logits, m, s, db, n_valid) -> None:
@@ -243,8 +300,8 @@ def _validate(feats, n_valid, c, want, vectors) -> None:
                              f"vectors and need K % {per} == 0 for "
                              f"{feats.dtype}")
         if any(t.data_ptr() % 16 for t in vectors):
-            raise ValueError("feats, w0 and dB must start on a 16-byte "
-                             "boundary")
+            raise ValueError("feats, w0, dB and (bf16) w2 must start on a "
+                             "16-byte boundary")
     elif feats.device.type != "cpu":
         raise ValueError(f"unsupported device {feats.device}")
 
@@ -272,10 +329,10 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _launch_fwd(entry: str, feats, w0, b0, w2, b2, q_max, n_valid: int,
-                nonlinear: bool):
+                nonlinear: bool, *extra: int):
     """Launch K1 (``entry`` = ``tpumil_attention_pool_fwd``) or K1-bf16
-    (``..._bf16``): the two take the same arguments and give the same f32
-    outputs."""
+    (``..._bf16``, whose ``extra`` is its rows per CTA): the two take the
+    same arguments and give the same f32 outputs."""
     from tpumil_torch.utils.build import load_library
 
     lib = load_library()
@@ -283,7 +340,7 @@ def _launch_fwd(entry: str, feats, w0, b0, w2, b2, q_max, n_valid: int,
     c = q_max.shape[0]
     with torch.cuda.device(feats.device):
         scratch = _scratch(getattr(lib, entry + "_scratch")(
-            int(nonlinear), n, int(n_valid), k, c), 1, feats, c)
+            int(nonlinear), n, int(n_valid), k, c, *extra), 1, feats, c)
         out = torch.empty((c, k), device=feats.device)
         m = torch.empty((c,), device=feats.device)
         s = torch.empty((c,), device=feats.device)
@@ -291,7 +348,7 @@ def _launch_fwd(entry: str, feats, w0, b0, w2, b2, q_max, n_valid: int,
         stream = torch.cuda.current_stream(feats.device).cuda_stream
         err = getattr(lib, entry)(
             *_launch_args(feats, w0, b0, w2, b2, q_max), n, int(n_valid), k,
-            c, int(nonlinear), scratch.data_ptr(), out.data_ptr(),
+            c, int(nonlinear), *extra, scratch.data_ptr(), out.data_ptr(),
             m.data_ptr(), s.data_ptr(), logits.data_ptr(), stream)
     _raise_on(err, entry[len("tpumil_"):])
     return out, m, s, logits
@@ -322,14 +379,17 @@ def attention_pool_fwd_bf16(feats, w0, b0, w2, b2, q_max, n_valid: int,
     and ``q_max`` and f32 ``b0``, ``b2``. On the CPU it rounds the softmax
     weights per tile of 1024 rows against the running max, as the TPU
     kernel's grid does (dsmil_pallas.fused_bag_forward's tile_n); on the
-    card against the global max (see ``attention_pool_bf16_plain``)."""
+    card per 64-row tile against the running max of each CTA's range of
+    ``bf16_segment_rows`` rows, the ranges merged in a fixed order (see
+    ``attention_pool_bf16_plain``)."""
     _check(feats, n_valid, nonlinear, w0, b0, w2, b2, q_max,
            stream=torch.bfloat16)
     if feats.device.type == "cpu":
         return attention_pool_bf16_plain(feats, w0, b0, w2, b2, q_max,
                                          n_valid, nonlinear)
     out = _launch_fwd("tpumil_attention_pool_fwd_bf16", feats, w0, b0, w2,
-                      b2, q_max, n_valid, nonlinear)
+                      b2, q_max, n_valid, nonlinear,
+                      bf16_segment_rows(feats.device, n_valid))
     attention_pool_fwd_bf16.launches += 1
     return out
 
@@ -460,20 +520,23 @@ def _instance_stream(model, feats, n_valid):
 def _aligned(feats, w0, dtype: torch.dtype = torch.float32):
     """``(feats, W0)`` in ``dtype`` as the kernels read them: when K is not a
     multiple of a 16-byte row's elements (4 in f32, 8 in bf16), feats starts
-    off a 16-byte boundary or the dtype differs, copies with K zero-padded
-    to that multiple in a fresh (aligned) tensor, cast in the same copy;
-    else the inputs themselves. Exact: the zero columns add nothing to z1 =
-    f W0^T, and the callers cut B's extra columns off before the bag head."""
+    off a 16-byte boundary or the dtype differs, copies into a fresh
+    (aligned) tensor, cast in the same copy, with K zero-padded to that
+    multiple where it is not one; else the inputs themselves. Exact: the
+    zero columns add nothing to z1 = f W0^T, and the callers cut B's extra
+    columns off before the bag head."""
     k = feats.shape[1]
     per = 16 // torch.empty((), dtype=dtype).element_size()
     kp = -(-k // per) * per
-    if kp == k and feats.data_ptr() % 16 == 0 and feats.dtype == dtype:
-        return feats, w0.to(dtype)
-    padded = feats.new_zeros((feats.shape[0], kp), dtype=dtype)
+    if kp == k:
+        if feats.data_ptr() % 16 == 0 and feats.dtype == dtype:
+            return feats, w0.to(dtype)
+        return feats.to(dtype, memory_format=torch.contiguous_format,
+                        copy=True), w0.to(dtype)
+    padded = feats.new_empty((feats.shape[0], kp), dtype=dtype)
     padded[:, :k] = feats
-    if kp != k:
-        w0 = torch.nn.functional.pad(w0, (0, kp - k))
-    return padded, w0.to(dtype)
+    padded[:, k:] = 0
+    return padded, torch.nn.functional.pad(w0, (0, kp - k)).to(dtype)
 
 
 def fused_bag_loss(model, feats: torch.Tensor, label: torch.Tensor,
