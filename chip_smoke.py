@@ -1,7 +1,7 @@
 """Drive the PyTorch port's serving, training (WSI and classic MIL),
 feature-extraction, slide-streaming, inference-and-heatmap and SimCLR
-pretraining paths, the bf16 giant-bag forward and the five-stage pipeline
-once on one CUDA card (sm_90a).
+pretraining paths, the bf16 giant-bag forward, the five-stage pipeline and
+the scale-out trainers (at world 1) once on one CUDA card (sm_90a).
 
     python3 chip_smoke.py
 
@@ -91,6 +91,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   feats, train and maps stages through pipeline.main with
                   K5/K4 (and K1-K3) launches counted per stage; every
                   stage's artifacts, the resolved YAML's round trip, walls
+ 18. scale_out -- the training half of scale-out at world 1 on NCCL: 3
+                  InstanceShardedBagTrainer steps against 3 eager BagTrainer
+                  steps on the [train] bags of N=4000 and 65529 (params
+                  within rtol 1e-3 / atol 2e-5, collective calls per step,
+                  K1-K3 launches 0, ms per step in turns, peak bytes per
+                  instance); train_wsi --inst_shard 1 and --data_parallel 1
+                  on [train_wsi]'s dataset (the inst-sharded folds equal the
+                  single-device run's); a sharded fold state crashed and
+                  resumed mid-fold; --inst_shard 2 refused on one card
 Then one JSON line of kernel results (each with its bound: the larger of
 its bytes over the memory rate and its operations over the peak rate of
 their type) and, last, the device JSON line.
@@ -101,6 +110,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1150,57 +1160,59 @@ def phase_train(gpu: str) -> dict:
     return {"launches": counts}
 
 
-def phase_train_wsi() -> None:
+def phase_train_wsi() -> dict:
     """The CLI a user runs, as a subprocess on a synthetic TCGA-shaped
-    dataset in a temporary directory."""
+    dataset in a temporary directory, which [scale_out] trains again and
+    then removes."""
     from tpumil_torch.data.feature_store import write_bag_csv
     from tpumil_torch.io import torch_ckpt
 
     rng = np.random.default_rng(4)
     sizes = rng.integers(200, 3001, 30).tolist()
     bags = synthetic_bags(sizes, 5)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "datasets", "synth")
-        rows = []
-        for i, bag in enumerate(bags):
-            cls = int(np.argmax(bag.label))
-            path = os.path.join(root, f"class{cls}", f"bag{i}.csv")
-            write_bag_csv(bag.feats, path)
-            rows.append(f"{path},{cls}")
-        with open(os.path.join(root, "synth.csv"), "w") as f:
-            f.write("0,label\n" + "\n".join(rows) + "\n")
-        cmd = [sys.executable, "-m", "tpumil_torch.cli.train_wsi",
-               "--device", "cuda", "--dataset", "synth", "--num_classes",
-               str(C), "--feats_size", str(K), "--num_epochs", "2",
-               "--eval_scheme", "5-fold-cv"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=tmp, capture_output=True, text=True,
-                              timeout=600,
-                              env=dict(os.environ, PYTHONPATH=REPO))
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"train_wsi exited {proc.returncode}:\n"
-                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        save = os.path.join(tmp, "weights")
-        (day,) = os.listdir(save)
-        save = os.path.join(save, day)
-        for ext in (".pth", ".json", ".done.json"):
-            found = [f for f in os.listdir(save)
-                     if f.startswith("fold_") and f.endswith(ext)
-                     and (ext == ".done.json" or not f.endswith(".done.json"))]
-            if len(found) != 5:
-                raise AssertionError(f"expected 5 fold_*{ext}, found {found}")
-        model, cfg, _ = torch_ckpt.load_mil_pth(os.path.join(save, "fold_0.pth"),
-                                                torch.device("cuda"))
-        with torch.inference_mode():
-            _, bag_logits, _, _ = model(torch.from_numpy(bags[0].feats).cuda())
-        if cfg.feats_size != K or cfg.num_classes != C \
-                or not torch.isfinite(bag_logits).all():
-            raise AssertionError(f"fold_0.pth: bad model {cfg}")
-        final = [l for l in proc.stdout.splitlines() if "Mean" in l]
-        log(f"[train_wsi] {' '.join(cmd[1:])}: exit 0 in {wall:.2f} s on "
-            f"{len(bags)} bags of 200-3000 x {K}; 5 fold_*.pth/.json/.done.json;"
-            f" fold_0.pth loads on the card; {'; '.join(final)}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wsi_")
+    root = os.path.join(tmp, "datasets", "synth")
+    rows = []
+    for i, bag in enumerate(bags):
+        cls = int(np.argmax(bag.label))
+        path = os.path.join(root, f"class{cls}", f"bag{i}.csv")
+        write_bag_csv(bag.feats, path)
+        rows.append(f"{path},{cls}")
+    with open(os.path.join(root, "synth.csv"), "w") as f:
+        f.write("0,label\n" + "\n".join(rows) + "\n")
+    cmd = [sys.executable, "-m", "tpumil_torch.cli.train_wsi",
+           "--device", "cuda", "--dataset", "synth", "--num_classes",
+           str(C), "--feats_size", str(K), "--num_epochs", "2",
+           "--eval_scheme", "5-fold-cv"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=tmp, capture_output=True, text=True,
+                          timeout=600,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"train_wsi exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    save = os.path.join(tmp, "weights")
+    (day,) = os.listdir(save)
+    save = os.path.join(save, day)
+    for ext in (".pth", ".json", ".done.json"):
+        found = [f for f in os.listdir(save)
+                 if f.startswith("fold_") and f.endswith(ext)
+                 and (ext == ".done.json" or not f.endswith(".done.json"))]
+        if len(found) != 5:
+            raise AssertionError(f"expected 5 fold_*{ext}, found {found}")
+    model, cfg, _ = torch_ckpt.load_mil_pth(os.path.join(save, "fold_0.pth"),
+                                            torch.device("cuda"))
+    with torch.inference_mode():
+        _, bag_logits, _, _ = model(torch.from_numpy(bags[0].feats).cuda())
+    if cfg.feats_size != K or cfg.num_classes != C \
+            or not torch.isfinite(bag_logits).all():
+        raise AssertionError(f"fold_0.pth: bad model {cfg}")
+    final = [l for l in proc.stdout.splitlines() if "Mean" in l]
+    log(f"[train_wsi] {' '.join(cmd[1:])}: exit 0 in {wall:.2f} s on "
+        f"{len(bags)} bags of 200-3000 x {K}; 5 fold_*.pth/.json/.done.json;"
+        f" fold_0.pth loads on the card; {'; '.join(final)}")
+    return {"tmp": tmp, "cmd": cmd, "save": save, "wall": wall}
 
 
 MIL_MODELS = ("dsmil", "abmil", "meanpool", "maxpool")
@@ -2448,6 +2460,189 @@ def phase_simclr(gpu: str) -> None:
             f"{err:.3e} (atol 1e-4, rtol 1e-4)")
 
 
+def fold_scores(save: str) -> list:
+    """(acc, thresholds) of each fold_k.done.json under ``save``."""
+    out = []
+    for k in range(5):
+        with open(os.path.join(save, f"fold_{k}.done.json")) as f:
+            meta = json.load(f)
+        out.append((meta["acc"], meta["thresholds"]))
+    return out
+
+
+def phase_scale_out(gpu: str, wsi: dict) -> None:
+    """The training half of scale-out at world 1 on NCCL (the one card;
+    NCCL refuses two ranks on one GPU): the inst-sharded step against the
+    eager step on the [train] bags, the train_wsi CLI with --inst_shard 1
+    and --data_parallel 1 beside [train_wsi]'s run, a sharded fold state
+    resumed mid-fold, and --inst_shard 2 refused before any work."""
+    import torch.distributed as dist
+
+    from tpumil_torch.data.device_store import DeviceBagStore
+    from tpumil_torch.io import native_ckpt
+    from tpumil_torch.models.dsmil import DSMILConfig
+    from tpumil_torch.ops import attention_pool as ap
+    from tpumil_torch.parallel import bag_shard, mesh
+    from tpumil_torch.train import schemes
+    from tpumil_torch.train.trainer import BagTrainer
+
+    dev = torch.device("cuda")
+    cfg = DSMILConfig(K, C)
+    world = mesh.make_mesh(1, 1, "cuda")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"expected a world of 1 on nccl, got "
+                             f"{dist.get_world_size()} on {dist.get_backend()}")
+    sizes = (4000, 65529)
+    store = DeviceBagStore(synthetic_bags(TRAIN_N, 3), device=dev)
+    kernels = (ap.attention_pool_fwd, ap.attention_pool_bwd1,
+               ap.attention_pool_bwd2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    peaks = {"sharded": [], "eager": []}
+    for n in sizes:
+        feats, label = store.bag(TRAIN_N.index(n)), store.label(
+            TRAIN_N.index(n))
+        sharded = bag_shard.InstanceShardedBagTrainer(
+            cfg, weight_decay=1e-3, device=dev, mesh=world)
+        eager = BagTrainer(cfg, weight_decay=1e-3, fused_threshold=None,
+                           device=dev)
+        ms, ps = sharded.init(torch.Generator().manual_seed(0))
+        me, pe = eager.init(torch.Generator().manual_seed(0))
+        for fn in kernels:  # the sharded path starts here
+            fn.launches = 0
+        bag_shard.collective.calls = 0
+        sharded._train_bags(ms, ps, [(feats, label)] * 3, False, gen)
+        torch.cuda.synchronize()
+        calls = bag_shard.collective.calls / 3
+        launched = [fn.launches for fn in kernels]
+        eager._train_bags(me, pe, [(feats, label)] * 3, False, gen)
+        worst = 0.0
+        for name, want in me.state_dict().items():
+            got = ms.state_dict()[name]
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=1e-3, atol=2e-5, err_msg=name)
+            worst = max(worst, float((got - want).abs().max()))
+        if calls == 0 or any(launched):
+            raise AssertionError(f"the sharded step ran {calls} collectives "
+                                 f"and launched K1/K2/K3 {launched}")
+        t = [step_ms(sharded, ms, ps, feats, label, False),
+             step_ms(eager, me, pe, feats, label, False),
+             step_ms(sharded, ms, ps, feats, label, False),
+             step_ms(eager, me, pe, feats, label, False)]
+        for route, tr, model, opt in (("sharded", sharded, ms, ps),
+                                      ("eager", eager, me, pe)):
+            peaks[route].append(peak_bytes(lambda: tr._train_bags(
+                model, opt, [(feats, label)], False, gen)))
+        log(f"[scale_out] N={n}: 3 inst-sharded steps (world 1, nccl) vs 3 "
+            f"eager steps from the same init: params within rtol 1e-3 atol "
+            f"2e-5, max |d| {worst:.3e}; {calls:.0f} collective calls a "
+            f"step, K1/K2/K3 launches {launched}; ms per step (host clock, "
+            f"synced, mean of 5, in turns): sharded {t[0]:.3f} / {t[2]:.3f},"
+            f" eager {t[1]:.3f} / {t[3]:.3f}; peak bytes above residents: "
+            f"sharded {peaks['sharded'][-1]} ({peaks['sharded'][-1] / n:.0f}"
+            f" B per instance), eager {peaks['eager'][-1]} "
+            f"({peaks['eager'][-1] / n:.0f}); {gpu}")
+    dn = sizes[1] - sizes[0]
+    log(f"[scale_out] working set per instance (slope over N={sizes}): "
+        f"sharded {(peaks['sharded'][1] - peaks['sharded'][0]) / dn:.0f} B, "
+        f"eager {(peaks['eager'][1] - peaks['eager'][0]) / dn:.0f} B")
+
+    # the CLI, both modes at once beside [train_wsi]'s single-device run
+    procs, t0 = {}, time.perf_counter()
+    for mode in ("inst_shard", "data_parallel"):
+        procs[mode] = subprocess.Popen(
+            wsi["cmd"] + [f"--{mode}", "1", "--save_root", f"w_{mode}",
+                          "--cache_dir", f"cache_{mode}"],
+            cwd=wsi["tmp"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ, PYTHONPATH=REPO))
+    walls = {}
+    for mode, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        walls[mode] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"train_wsi --{mode} 1 exited "
+                               f"{proc.returncode}:\n{out[-3000:]}\n"
+                               f"{err[-3000:]}")
+    day = os.path.basename(wsi["save"])
+    want = fold_scores(wsi["save"])
+    got = fold_scores(os.path.join(wsi["tmp"], "w_inst_shard", day))
+    for (acc, th), (acc0, th0) in zip(got, want):
+        np.testing.assert_allclose(th, th0, atol=1e-3)
+        if acc != acc0:
+            raise AssertionError(f"inst_shard 1 fold accuracy {acc} != {acc0}")
+    dp = fold_scores(os.path.join(wsi["tmp"], "w_data_parallel", day))
+    log(f"[scale_out] train_wsi --inst_shard 1 and --data_parallel 1 (run "
+        f"side by side): exit 0 in {walls['inst_shard']:.2f} / "
+        f"{walls['data_parallel']:.2f} s ([train_wsi] alone "
+        f"{wsi['wall']:.2f} s); inst_shard fold accuracies "
+        f"{[a for a, _ in got]} equal the single-device run's, thresholds "
+        f"within 1e-3; data_parallel wrote 5 folds, accuracies "
+        f"{[a for a, _ in dp]}")
+
+    # a sharded fold state saved mid-fold (a crash after the 2nd save)
+    # resumes on the uninterrupted trajectory
+    bags = synthetic_bags(np.random.default_rng(6).integers(
+        200, 3001, 18).tolist(), 7)
+    wcfg = schemes.WSITrainConfig(feats_size=K, num_classes=C, num_epochs=4,
+                                  stop_epochs=4, lr=1e-3,
+                                  verbose=False, resume=True,
+                                  fold_state_every=1, inst_shard=1,
+                                  device=dev)
+    trainer = schemes._make_trainer(wcfg)
+    fp = schemes._cfg_fingerprint(wcfg, "5-fold-cv")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_state_")
+    save, n_saves = native_ckpt.save_train_state, [0]
+
+    def run(state_dir):
+        return schemes.train_fold(
+            trainer, bags[:12], bags[12:], wcfg, np.random.default_rng(3),
+            torch.Generator().manual_seed(1), lambda s: None,
+            state_dir=os.path.join(tmp, state_dir), state_fp=fp)
+
+    def crash(path, state, *, meta=None):
+        save(path, state, meta=meta)
+        n_saves[0] += 1
+        if n_saves[0] == 2:
+            raise KeyboardInterrupt
+
+    try:
+        straight = run("s1")
+        native_ckpt.save_train_state = crash
+        try:
+            run("s2")
+            raise AssertionError("the fold did not crash")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            native_ckpt.save_train_state = save
+        resumed = run("s2")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    diff = max(float((resumed["params"][k] - v).abs().max())
+               for k, v in straight["params"].items())
+    if resumed["acc"] != straight["acc"] or diff > 0.0:
+        raise AssertionError(f"resumed fold: acc {resumed['acc']} vs "
+                             f"{straight['acc']}, params max |d| {diff}")
+    log(f"[scale_out] fold state saved at the 2nd of 4 boundaries, crashed, "
+        f"resumed: best params bitwise the uninterrupted fold's, acc "
+        f"{resumed['acc']:.4f}, thresholds {resumed['thresholds']}")
+    dist.destroy_process_group()
+
+    # too few devices: refused before any work
+    t0 = time.perf_counter()
+    proc = subprocess.run(wsi["cmd"] + ["--inst_shard", "2"], cwd=wsi["tmp"],
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+    msg = "requested 2 devices but only 1 are available"
+    if proc.returncode == 0 or msg not in proc.stderr \
+            or "Creating intermediate" in proc.stdout:
+        raise AssertionError(f"--inst_shard 2 on one card: exit "
+                             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-2000:]}")
+    log(f"[scale_out] train_wsi --inst_shard 2 on one card: exit "
+        f"{proc.returncode} in {time.perf_counter() - t0:.2f} s before any "
+        f"work: {proc.stderr.strip().splitlines()[-1]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2460,7 +2655,7 @@ def main() -> int:
     launches = phase_serve(gpu)
     pool = phase_pool(gpu)
     train = phase_train(gpu)
-    phase_train_wsi()
+    wsi = phase_train_wsi()
     phase_train_mil(gpu)
     stem = phase_stem(gpu)[torch.float32]
     k5_launches = phase_compute_feats(gpu)
@@ -2469,6 +2664,10 @@ def main() -> int:
     phase_simclr(gpu)
     pool_bf16 = phase_pool_bf16(gpu, compiler_log)
     phase_pipeline(gpu)
+    try:
+        phase_scale_out(gpu, wsi)
+    finally:
+        shutil.rmtree(wsi["tmp"], ignore_errors=True)
     kernels = [{
         "name": "fused_instance_norm", "route": "cuda",
         "source": "tpumil_torch/csrc/instance_norm.cu",

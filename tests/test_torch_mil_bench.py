@@ -24,6 +24,8 @@ from tpumil_torch.models.registry import get_model
 from tpumil_torch.train import schemes
 from tpumil_torch.train.trainer import BagTrainer
 
+import torch_parallel_util as util
+
 CPU = torch.device("cpu")
 MUSK = os.path.join(os.path.dirname(__file__), "data", "musk1_mini.svm")
 
@@ -128,8 +130,9 @@ def _cv_matches_jax(monkeypatch, kw):
         assert g[mg.end():] == w[mw.end():] and g[:mg.start()] == w[:mw.start()]
 
 
-def test_run_mil_cv_checks_init_and_scale_out():
-    """The JAX package's init checks and messages; inst_shard raises; the
+def test_run_mil_cv_checks_init_and_scale_out(tmp_path):
+    """The JAX package's init checks and messages; inst_shard 2 in a
+    spawned gloo world of 2 trains as JAX's inst_shard 2 does; the
     torch-default init trains dsmil, from a permutation as the bag order."""
     bags = mil_bench.parse_mil_file(MUSK, 166)
     cfg = dict(num_feats=166, cv_fold=3, num_epochs=1, verbose=False,
@@ -142,8 +145,29 @@ def test_run_mil_cv_checks_init_and_scale_out():
         with pytest.raises(ValueError, match=msg):
             jschemes.run_mil_cv(jmb.parse_mil_file(MUSK, 166),
                                 jschemes.MILBenchConfig(num_feats=166, **bad))
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        schemes.run_mil_cv(bags, schemes.MILBenchConfig(**cfg, inst_shard=2))
+    # the folds' inits are JAX's (keys seed + 1000 * fold), as in
+    # _cv_matches_jax; rank 0 alone logs
+    kw = dict(num_feats=166, cv_fold=3, num_epochs=1, inst_shard=2)
+    want_log = []
+    want = jschemes.run_mil_cv(jmb.parse_mil_file(MUSK, 166),
+                               jschemes.MILBenchConfig(**kw),
+                               log=want_log.append)
+    inits = {k * 1000: from_jax.mil_state_dict(jax.tree.map(
+        np.asarray, jget_model("dsmil").init_params(
+            jax.random.PRNGKey(k * 1000), JCfg(166, 1))), "dsmil")
+        for k in range(3)}
+    ranks = util.run_world(2, util.mil_run, kw, MUSK, 166, inits,
+                           tmp=tmp_path)
+    for rank, (got, got_log) in enumerate(ranks):
+        assert got[2] == want[2] and got[:2] == want[:2]
+        assert len(got_log) == (len(want_log) if rank == 0 else 0)
+    for g, w in zip(ranks[0][1], want_log):
+        mg, mw = _LOSSES.search(g), _LOSSES.search(w)
+        if mw is None:
+            assert g == w
+            continue
+        np.testing.assert_allclose([float(x) for x in mg.groups()],
+                                   [float(x) for x in mw.groups()], atol=1e-4)
     with pytest.raises(ValueError, match="permutation"):
         schemes.run_mil_cv(bags, schemes.MILBenchConfig(**cfg),
                            permutation=[0] * len(bags))
@@ -183,7 +207,8 @@ def test_cli_flags_match_jax():
 def test_train_mil_cli(tmp_path, monkeypatch, capsys):
     """python -m tpumil_torch.cli.train_mil on the CPU; the card by
     default, which raises without one before any file is read; unknown
-    models and --inst_shard raise before the file is read too."""
+    models and --inst_shard for a model without a sharded forward raise
+    before the file is read (and before any worker starts) too."""
     monkeypatch.chdir(tmp_path)
     assert train_mil.main(["--device", "cpu", "--data_file", MUSK,
                            "--num_feats", "166", "--cv_fold", "3",
@@ -194,7 +219,8 @@ def test_train_mil_cli(tmp_path, monkeypatch, capsys):
     assert out.count("optimal accuracy") == 3
     missing = str(tmp_path / "absent.svm")
     for argv, exc in ((["--model", "transmil"], ValueError),
-                      (["--inst_shard", "2"], NotImplementedError)):
+                      (["--model", "abmil", "--inst_shard", "2"],
+                       NotImplementedError)):
         with pytest.raises(exc):
             train_mil.main(["--device", "cpu", "--data_file", missing,
                             "--num_feats", "166"] + argv)

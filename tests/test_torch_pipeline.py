@@ -7,6 +7,7 @@ fetched)."""
 
 import argparse
 import glob
+import json
 import os
 import runpy
 import sys
@@ -19,6 +20,8 @@ import torch
 from tpumil.cli import download as jdownload
 from tpumil.cli import pipeline as jpipeline
 from tpumil_torch.cli import download, pipeline
+
+import torch_parallel_util as util
 
 
 def _flags(parse):
@@ -58,7 +61,9 @@ def _yaml(tmp_path, name, text):
 
 
 # (yaml body, stages, message): the JAX pipeline's checks first, then the
-# port's refusal of every multi-device field above 0
+# port's refusal of embedder.data_parallel above 0 (the embedding half of
+# scale-out) and the device probe of the train stage's fields (no card here,
+# or one: fewer than 2 or 4)
 REFUSALS = [
     ("", "tile,resize", "unknown stage 'resize'"),
     ("embedder:\n  data_parallel: -2\n", "feats", ">= 0"),
@@ -75,8 +80,10 @@ SCALE_OUT = [
     ("embedder:\n  batch_size: 8\n  data_parallel: 8\n", "feats",
      "embedder.data_parallel 8"),
     ("embedder:\n  data_parallel: 2\n", "maps", "embedder.data_parallel 2"),
-    ("train:\n  inst_shard: 4\n", "train", "train.inst_shard 4"),
-    ("train:\n  data_parallel: 2\n", "tile,train", "train.data_parallel 2"),
+    ("train:\n  inst_shard: 4\n", "train",
+     "train.inst_shard: requested 4 devices but only"),
+    ("train:\n  data_parallel: 2\n", "tile,train",
+     "train.data_parallel: requested 2 devices but only"),
 ]
 
 
@@ -95,7 +102,8 @@ def test_refusals_before_any_stage(tmp_path, monkeypatch, capsys, body,
     assert msg in err
     assert not os.path.exists("runs")
     if (body, stages, msg) in SCALE_OUT:
-        assert "scale-out slice" in err
+        if msg.startswith("embedder"):
+            assert "scale-out slice (ROADMAP Queue 1 item 4b)" in err
         return
     with pytest.raises(SystemExit):
         jpipeline.main(["--config", name, "--stages", stages, "--device",
@@ -157,6 +165,24 @@ def test_pipeline_all_stages_on_cpu(pipeline_workdir):
 
     resolved = PipelineConfig.from_yaml("runs/demo/resolved_config.yaml")
     assert resolved.to_dict() == PipelineConfig.from_yaml("exp.yaml").to_dict()
+    # the train stage again with train.inst_shard 2: two gloo workers read
+    # the bag cache and train the single-device folds
+    with open("exp.yaml") as f:
+        body = f.read().replace("train:\n", "train:\n  inst_shard: 2\n")
+    with open("sharded.yaml", "w") as f:
+        f.write(body)
+    out = util.run_cli("tpumil_torch.cli.pipeline", [
+        "--config", "sharded.yaml", "--stages", "train", "--device", "cpu",
+        "--run_root", "sharded"], cwd=os.getcwd())
+    assert "starting 2 workers on cpu" in out and "pipeline done." in out
+    plain, sharded = "runs/demo/weights", "sharded/demo/weights"
+    assert sorted(os.listdir(sharded)) == sorted(os.listdir(plain))
+    for name in sorted(glob.glob(os.path.join(plain, "fold_?.done.json"))):
+        with open(name) as f, open(name.replace(plain, sharded)) as g:
+            want, got = json.load(f), json.load(g)
+        assert got["acc"] == want["acc"]
+        np.testing.assert_allclose(got["thresholds"], want["thresholds"],
+                                   atol=1e-3)
 
 
 def test_pipeline_defaults_to_the_card(pipeline_workdir):

@@ -27,6 +27,7 @@ from tpumil_torch.models.dsmil import DSMIL
 from tpumil_torch.train import metrics, schemes
 from tpumil_torch.train.trainer import BagTrainer
 
+import torch_parallel_util as util
 from synth import make_separable_bags
 
 CPU = torch.device("cpu")
@@ -240,10 +241,33 @@ def test_resume_from_markers_and_scale_out_raises(tmp_path):
                                          save_dir=save_dir)
     assert not any("Resuming fold" in line for line in logs)
     assert len(glob.glob(os.path.join(save_dir, "test", "*.pth"))) == 5
-    for mode in ("inst_shard", "data_parallel"):
-        bad = schemes.WSITrainConfig(feats_size=16, num_classes=1, **{mode: 2})
-        with pytest.raises(NotImplementedError, match="scale-out"):
-            schemes.run_5fold_cv(pbags, bad, log=lambda s: None)
+    # scale-out, in one spawned gloo world of 2: inst_shard 2 equals the
+    # single-device run (the JAX package's
+    # test_run_5fold_cv_inst_sharded_parity), data_parallel 2 (another
+    # optimisation, no parity) trains all 5 folds; rank 0 alone logs and
+    # writes
+    kw = {k: v for k, v in cfg.__dict__.items() if k != "device"}
+    runs = [({**kw, "inst_shard": 2}, str(tmp_path / "inst")),
+            ({**kw, "data_parallel": 2}, str(tmp_path / "dp"))]
+    ranks = util.run_world(2, util.schemes_runs, runs,
+                           [(b.feats, b.label, b.name) for b in pbags],
+                           tmp=tmp_path)
+    for rank, results in enumerate(ranks):
+        (inst, inst_log), (dp, dp_log) = results
+        assert [f["acc"] for f in inst["folds"]] == \
+            [f["acc"] for f in out1["folds"]]
+        np.testing.assert_allclose([f["aucs"] for f in inst["folds"]],
+                                   [f["aucs"] for f in out1["folds"]],
+                                   atol=1e-3)
+        np.testing.assert_allclose([f["thresholds"] for f in inst["folds"]],
+                                   [f["thresholds"] for f in out1["folds"]],
+                                   atol=1e-3)
+        assert inst["mean_accuracy"] == out1["mean_accuracy"]
+        assert len(dp["folds"]) == 5 and np.isfinite(dp["mean_accuracy"])
+        assert (len(inst_log) > 0 and len(dp_log) > 0) == (rank == 0)
+    for sub in ("inst", "dp"):
+        for ext in (".pth", ".json", ".done.json"):
+            assert len(glob.glob(str(tmp_path / sub / f"fold_?{ext}"))) == 5
 
 
 def test_mid_fold_state_resume_is_exact(tmp_path, monkeypatch):
@@ -312,12 +336,28 @@ def test_train_wsi_cli(tmp_path, monkeypatch, capsys):
         assert len(json.load(f)) == 1
     model, cfg, _ = torch_ckpt.load_mil_pth(str(save_dir / "fold_0.pth"), CPU)
     assert cfg.feats_size == 16 and cfg.num_classes == 1
-    for argv, exc in ((["--device", "cpu", "--model", "transmil"],
-                       ValueError),
-                      (["--device", "cpu", "--inst_shard", "2"],
-                       NotImplementedError)):
-        with pytest.raises(exc):
-            train_wsi.main(argv + ["--dataset", "synth"])
+    with pytest.raises(ValueError):
+        train_wsi.main(["--device", "cpu", "--model", "transmil",
+                        "--dataset", "synth"])
+    # --inst_shard 2 starts 2 gloo workers and writes the plain run's files
+    out = util.run_cli("tpumil_torch.cli.train_wsi", [
+        "--device", "cpu", "--dataset", "synth", "--num_classes", "1",
+        "--feats_size", "16", "--num_epochs", "2", "--lr", "1e-3",
+        "--inst_shard", "2", "--save_root", "sharded", "--cache_dir",
+        "sharded_cache"], cwd=tmp_path)
+    assert "starting 2 workers on cpu" in out
+    assert out.count("Final results: Mean Accuracy") == 1
+    sharded = tmp_path / "sharded" / day
+    assert sorted(os.listdir(sharded)) == sorted(os.listdir(save_dir))
+    for k in range(5):
+        for name in (f"fold_{k}.json", f"fold_{k}.done.json"):
+            with open(save_dir / name) as f, open(sharded / name) as g:
+                want, got = json.load(f), json.load(g)
+            if name.endswith(".done.json"):
+                assert got["acc"] == want["acc"]
+                assert got["fingerprint"] == want["fingerprint"]
+                want, got = want["thresholds"], got["thresholds"]
+            np.testing.assert_allclose(got, want, atol=1e-3)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_wsi.main(["--device", "cuda", "--dataset", "synth"])

@@ -130,6 +130,8 @@ _PORT_MODULES = [
     "tpumil_torch.train.simclr_trainer", "tpumil_torch.cli.simclr_train",
     "tpumil_torch.io.config", "tpumil_torch.cli.pipeline",
     "tpumil_torch.cli.download", "tpumil_torch.cli.__main__",
+    "tpumil_torch.parallel.mesh", "tpumil_torch.parallel.bag_shard",
+    "tpumil_torch.parallel.sharded_train",
 ]
 # not installed beside the card (sklearn, optax, orbax, pandas), or the
 # package the port replaces

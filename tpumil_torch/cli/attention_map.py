@@ -69,8 +69,9 @@ DATA_PARALLEL_HELP = (
 def refuse_data_parallel(n: int) -> None:
     if n:
         raise NotImplementedError(
-            "--data_parallel belongs to the scale-out slice (ROADMAP Queue "
-            "1), not ported yet; run on one device")
+            "--data_parallel belongs to the embedding half of the scale-out "
+            "slice (ROADMAP Queue 1 item 4b), not ported yet; run on one "
+            "device")
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -90,8 +90,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.data_parallel:
         raise NotImplementedError(
-            "--data_parallel belongs to the scale-out slice (ROADMAP Queue "
-            "1), not ported yet; extract on one device")
+            "--data_parallel belongs to the embedding half of the scale-out "
+            "slice (ROADMAP Queue 1 item 4b), not ported yet; extract on "
+            "one device")
 
     from tpumil_torch.data.feature_store import build_dataset_csvs
     from tpumil_torch.data.patches import list_bag_dirs

@@ -7,11 +7,14 @@ any subset of the five stages from one typed YAML
 
 tile (data/tiler) -> simclr (SimCLRTrainer) -> feats (cli/compute_feats) ->
 train (5-fold-cv-standalone-test over the bag cache) -> maps (BagInference,
-run_attention_maps), on one device: ``--device`` (default cuda, which raises
-without a card) reaches every stage. The multi-device fields
-(``embedder.data_parallel``, ``train.inst_shard``, ``train.data_parallel``)
-belong to the scale-out slice of the port and are refused above 0 before
-any stage runs, with every other check of the JAX pipeline.
+run_attention_maps): ``--device`` (default cuda, which raises without a
+card) reaches every stage. ``train.inst_shard`` / ``train.data_parallel``
+N > 1 run the train stage on N devices, one process each, as the train_wsi
+CLI does: in N local workers that this command starts after building the
+bag cache, or, under ``torchrun``, on the launcher's ranks (then the train
+stage is the only one). ``embedder.data_parallel`` belongs to the embedding
+half of scale-out and is refused above 0. Every check, the device probe
+included, runs before the first stage.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ import sys
 
 STAGES = ("tile", "simclr", "feats", "train", "maps")
 
-SCALE_OUT = ("the scale-out slice of the port (ROADMAP Queue 1), not ported "
-             "yet; set it to 0 to run on one device")
+EMBEDDING_HALF = ("the embedding half of the scale-out slice (ROADMAP Queue "
+                  "1 item 4b), not ported yet; set it to 0 to run on one "
+                  "device")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,11 +43,13 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def validate(parser: argparse.ArgumentParser, cfg, stages) -> None:
+def validate(parser: argparse.ArgumentParser, cfg, stages,
+             device: str) -> None:
     """Every check that can fail a later stage, before the first one runs
     (the train and maps stages run after hours of tiling and pretraining):
-    the JAX pipeline's checks and messages, then the refusal of any
-    multi-device field above 0."""
+    the JAX pipeline's checks and messages, the refusal of
+    ``embedder.data_parallel`` above 0, and the probe of the devices that
+    the train stage asks for."""
     for s in stages:
         if s not in STAGES:
             parser.error(f"unknown stage {s!r}; valid: {STAGES}")
@@ -74,8 +80,21 @@ def validate(parser: argparse.ArgumentParser, cfg, stages) -> None:
                 parser.error(f"{name} must be >= 0, got {val}")
             if val:
                 device_asks.append((name, val))
+    from tpumil_torch.parallel.mesh import take_devices
+
     for name, val in device_asks:
-        parser.error(f"{name} {val}: {SCALE_OUT}")
+        if name == "embedder.data_parallel":
+            parser.error(f"{name} {val}: {EMBEDDING_HALF}")
+        try:
+            take_devices(val, device)
+        except ValueError as exc:
+            parser.error(f"{name}: {exc}")
+    if "WORLD_SIZE" in os.environ and not (
+            stages == ["train"]
+            and (cfg.train.inst_shard or cfg.train.data_parallel)):
+        parser.error("under a launcher the pipeline runs only the train "
+                     "stage, with train.inst_shard or train.data_parallel; "
+                     "run the other stages in one process")
 
 
 def _embedder_weights(cfg, run_dir: str, simclr_ckpt):
@@ -92,6 +111,20 @@ def _embedder_weights(cfg, run_dir: str, simclr_ckpt):
     return weights
 
 
+def train_stage(train_cfg, run_dir: str, device: str) -> None:
+    """5-fold-cv-standalone-test over the run's bag cache into
+    ``<run_dir>/weights``, on this process's device (one rank of the
+    train stage's process group when it has one)."""
+    from tpumil_torch.data.feature_store import BagCache
+    from tpumil_torch.train import schemes
+    from tpumil_torch.utils.device import select_device
+
+    schemes.run_5fold_cv_standalone_test(
+        BagCache(os.path.join(run_dir, "bag_cache")).load_all(),
+        dataclasses.replace(train_cfg, device=select_device(device)),
+        save_dir=os.path.join(run_dir, "weights"))
+
+
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -100,14 +133,17 @@ def main(argv=None):
 
     cfg = PipelineConfig.from_yaml(args.config)
     stages = [s.strip() for s in args.stages.split(",") if s.strip()]
-    validate(parser, cfg, stages)
+    validate(parser, cfg, stages, args.device)
 
+    from tpumil_torch.parallel import mesh
     from tpumil_torch.utils.device import select_device
 
+    mesh.init_distributed(device_type=args.device)  # under a launcher only
     device = select_device(args.device)
     run_dir = os.path.join(args.run_root, cfg.dataset)
-    os.makedirs(run_dir, exist_ok=True)
-    cfg.to_yaml(os.path.join(run_dir, "resolved_config.yaml"))
+    if mesh.is_main():
+        os.makedirs(run_dir, exist_ok=True)
+        cfg.to_yaml(os.path.join(run_dir, "resolved_config.yaml"))
 
     simclr_ckpt = None
     if "tile" in stages:
@@ -167,19 +203,27 @@ def main(argv=None):
         cf.main(cf_args)
 
     if "train" in stages:
-        print(f"== stage: train ({cfg.train.model}, "
-              f"{cfg.train.num_epochs} epochs)")
         from tpumil_torch.data.feature_store import BagCache, read_master_csv
-        from tpumil_torch.train import schemes
 
-        bags_csv = os.path.join(cfg.datasets_root, cfg.dataset,
-                                cfg.dataset + ".csv")
-        cache = BagCache(os.path.join(run_dir, "bag_cache"))
-        cache.build(read_master_csv(bags_csv), cfg.train.num_classes,
-                    dataset=cfg.dataset, seed=cfg.train.seed)
-        schemes.run_5fold_cv_standalone_test(
-            cache.load_all(), dataclasses.replace(cfg.train, device=device),
-            save_dir=os.path.join(run_dir, "weights"))
+        n = cfg.train.inst_shard or cfg.train.data_parallel
+        if mesh.is_main():
+            print(f"== stage: train ({cfg.train.model}, "
+                  f"{cfg.train.num_epochs} epochs)")
+            bags_csv = os.path.join(cfg.datasets_root, cfg.dataset,
+                                    cfg.dataset + ".csv")
+            BagCache(os.path.join(run_dir, "bag_cache")).build(
+                read_master_csv(bags_csv), cfg.train.num_classes,
+                dataset=cfg.dataset, seed=cfg.train.seed)
+        mesh.barrier()
+        if mesh.needs_workers(n):
+            if device.type == "cuda":
+                import torch
+
+                torch.cuda.empty_cache()  # worker 0 trains on this card
+            mesh.launch(train_stage, n, (cfg.train, run_dir, args.device),
+                        args.device)
+        else:
+            train_stage(cfg.train, run_dir, args.device)
 
     if "maps" in stages:
         print("== stage: maps")

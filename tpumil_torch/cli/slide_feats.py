@@ -65,8 +65,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.data_parallel:
         raise NotImplementedError(
-            "--data_parallel belongs to the scale-out slice (ROADMAP Queue "
-            "1), not ported yet; stream on one device")
+            "--data_parallel belongs to the embedding half of the scale-out "
+            "slice (ROADMAP Queue 1 item 4b), not ported yet; stream on one "
+            "device")
 
     import glob
     import os

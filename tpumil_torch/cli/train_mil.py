@@ -8,6 +8,9 @@ tpumil/cli/train_mil.py).
 
 ``--datasets`` reads ``datasets/mil_dataset/<file>`` (data/mil_bench.py's
 ``DATASET_FILES``); ``--data_file`` with ``--num_feats`` overrides it.
+``--inst_shard N`` with N > 1 runs on N devices, one process each, as
+``train_wsi`` does: under ``torchrun``, or in N local workers that this
+command starts itself; rank 0 logs.
 """
 
 from __future__ import annotations
@@ -42,7 +45,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--inst_shard", default=0, type=int, metavar="N",
                         help="Shard every bag's instance axis over N devices "
-                             "(not ported yet: raises) [0 = off]")
+                             "(power of two), one process each; the "
+                             "single-device trajectory to float tolerance "
+                             "[0 = off]")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda without a card raises")
     args = parser.parse_args(argv)
@@ -54,31 +59,52 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
 
+    from tpumil_torch.parallel import mesh
     from tpumil_torch.train import schemes
     from tpumil_torch.utils.device import select_device
 
+    if mesh.needs_workers(args.inst_shard):
+        # refusals and a too-small host fail here, before any worker starts
+        schemes.check_mil_config(_config(args, None))
+        mesh.take_devices(args.inst_shard, args.device)
+        mesh.launch(main, args.inst_shard, (argv,), args.device)
+        return 0
+    if args.inst_shard:
+        mesh.init_distributed(device_type=args.device)  # under a launcher
+    log = print if mesh.is_main() else (lambda *a: None)
     device = select_device(args.device)
-    print(f"device: {device}")
+    log(f"device: {device}")
+    cfg = _config(args, device)
+    # unknown models and refused modes raise before any file is read
+    schemes._make_mil_trainer(cfg)
+
+    log("Dataset: " + (args.data_file or args.datasets))
+    bags = parse_mil_file(_path(args), num_feats=cfg.num_feats)
+    schemes.run_mil_cv(bags, cfg)
+    return 0
+
+
+def _path(args: argparse.Namespace) -> str:
     if args.data_file:
-        path, num_feats = args.data_file, args.num_feats
+        return args.data_file
+    return os.path.join("datasets", "mil_dataset",
+                        DATASET_FILES[args.datasets][0])
+
+
+def _config(args: argparse.Namespace, device):
+    from tpumil_torch.train import schemes
+
+    if args.data_file:
+        num_feats = args.num_feats
     else:
-        rel, num_feats = DATASET_FILES[args.datasets]
-        path = os.path.join("datasets", "mil_dataset", rel)
-        if args.num_feats:
-            num_feats = args.num_feats
-    cfg = schemes.MILBenchConfig(
+        num_feats = args.num_feats or DATASET_FILES[args.datasets][1]
+    return schemes.MILBenchConfig(
         num_feats=num_feats, lr=args.lr, num_epochs=args.num_epoch,
         cv_fold=args.cv_fold, weight_decay=args.weight_decay, seed=args.seed,
         model=args.model, inst_shard=args.inst_shard, device=device)
-    # unknown models and unported modes raise before any file is read
-    schemes._make_mil_trainer(cfg)
-
-    print("Dataset: " + (args.data_file or args.datasets))
-    bags = parse_mil_file(path, num_feats=num_feats)
-    schemes.run_mil_cv(bags, cfg)
-    return 0
 
 
 if __name__ == "__main__":

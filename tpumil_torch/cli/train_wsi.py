@@ -8,6 +8,12 @@ tpumil/cli/train_wsi.py).
 Reads ``datasets/<name>/<name>.csv`` (``datasets/tcga-dataset/TCGA.csv``
 for TCGA-lung-default), caches the bags under ``--cache_dir`` and writes
 ``fold_{k}.pth``/``.json``/``.done.json`` under ``--save_root/<date>/``.
+
+``--inst_shard N`` / ``--data_parallel N`` with N > 1 run on N devices, one
+process each: under ``torchrun`` every process joins the launcher's group;
+otherwise this command starts N local workers itself, each running the
+same command on its own device (``cuda:r``, or the CPU with ``--device
+cpu``). Rank 0 builds the bag cache and writes every output.
 """
 
 from __future__ import annotations
@@ -74,10 +80,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "here is --device")
     parser.add_argument("--inst_shard", default=0, type=int, metavar="N",
                         help="Shard every bag's instance axis over N devices "
-                             "(not ported yet: raises) [0 = off]")
+                             "(power of two), one process each; the "
+                             "single-device trajectory to float tolerance "
+                             "[0 = off]")
     parser.add_argument("--data_parallel", default=0, type=int, metavar="N",
-                        help="Minibatch training over N devices (not ported "
-                             "yet: raises) [0 = off]")
+                        help="Minibatch training over a (data, inst) mesh of "
+                             "N devices: one Adam step per chunk of bags, a "
+                             "documented deviation from the reference's "
+                             "per-bag steps. Mutually exclusive with "
+                             "--inst_shard [0 = off]")
     args = parser.parse_args(argv)
     if args.inst_shard and args.data_parallel:
         parser.error("--inst_shard and --data_parallel are mutually "
@@ -88,27 +99,30 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    print(args.eval_scheme)
 
     from tpumil_torch.data.feature_store import BagCache, read_master_csv
+    from tpumil_torch.parallel import mesh
     from tpumil_torch.train import schemes
     from tpumil_torch.utils.device import select_device
 
+    n = args.inst_shard or args.data_parallel
+    if mesh.needs_workers(n):
+        # refusals and a too-small host fail here, before any worker starts
+        schemes.check_config(_config(args, None))
+        mesh.take_devices(n, args.device)
+        mesh.launch(main, n, (argv,), args.device)
+        return 0
+    if n:
+        mesh.init_distributed(device_type=args.device)  # under a launcher
+    log = print if mesh.is_main() else (lambda *a: None)
+    log(args.eval_scheme)
     device = select_device(args.device)
-    print(f"device: {device}")
+    log(f"device: {device}")
 
-    cfg = schemes.WSITrainConfig(
-        feats_size=args.feats_size, num_classes=args.num_classes, lr=args.lr,
-        num_epochs=args.num_epochs, stop_epochs=args.stop_epochs,
-        weight_decay=args.weight_decay, split=args.split,
-        dropout_patch=args.dropout_patch, dropout_node=args.dropout_node,
-        nonlinear=bool(args.non_linearity), average=args.average,
-        seed=args.seed, model=args.model, eval_interval=args.eval_interval,
-        resume=args.resume, fold_state_every=args.fold_state_every or None,
-        inst_shard=args.inst_shard, data_parallel=args.data_parallel,
-        device=device)
-    # unknown models and unported modes raise before any file is touched
+    cfg = _config(args, device)
+    # unknown models and refused modes raise before any file is touched
     schemes._make_trainer(cfg)
 
     if args.dataset == "TCGA-lung-default":
@@ -116,10 +130,12 @@ def main(argv=None) -> int:
     else:
         bags_csv = os.path.join("datasets", args.dataset, args.dataset + ".csv")
     cache = BagCache(args.cache_dir)
-    print("Creating intermediate training files.")
-    cache.build(read_master_csv(bags_csv), args.num_classes,
-                dataset=args.dataset, seed=args.seed,
-                log=lambda s: sys.stdout.write(s))
+    if mesh.is_main():
+        print("Creating intermediate training files.")
+        cache.build(read_master_csv(bags_csv), args.num_classes,
+                    dataset=args.dataset, seed=args.seed,
+                    log=lambda s: sys.stdout.write(s))
+    mesh.barrier()
     bags = cache.load_all()
 
     save_dir = os.path.join(args.save_root,
@@ -130,6 +146,21 @@ def main(argv=None) -> int:
                schemes.run_5fold_cv_standalone_test}[args.eval_scheme]
     run(bags, cfg, save_dir=save_dir)
     return 0
+
+
+def _config(args: argparse.Namespace, device):
+    from tpumil_torch.train import schemes
+
+    return schemes.WSITrainConfig(
+        feats_size=args.feats_size, num_classes=args.num_classes, lr=args.lr,
+        num_epochs=args.num_epochs, stop_epochs=args.stop_epochs,
+        weight_decay=args.weight_decay, split=args.split,
+        dropout_patch=args.dropout_patch, dropout_node=args.dropout_node,
+        nonlinear=bool(args.non_linearity), average=args.average,
+        seed=args.seed, model=args.model, eval_interval=args.eval_interval,
+        resume=args.resume, fold_state_every=args.fold_state_every or None,
+        inst_shard=args.inst_shard, data_parallel=args.data_parallel,
+        device=device)
 
 
 if __name__ == "__main__":

@@ -56,8 +56,9 @@ class FeatureExtractor:
                  patch_size: int = 224, num_workers: int = 8, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "FeatureExtractor(mesh=...) belongs to the scale-out slice "
-                "(ROADMAP Queue 1), not ported yet; extract on one device")
+                "FeatureExtractor(mesh=...) belongs to the embedding half of "
+                "the scale-out slice (ROADMAP Queue 1 item 4b), not ported "
+                "yet; extract on one device")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device

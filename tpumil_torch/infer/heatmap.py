@@ -82,8 +82,9 @@ class BagInference:
 
         if mesh is not None:
             raise NotImplementedError(
-                "BagInference(mesh=...) belongs to the scale-out slice "
-                "(ROADMAP Queue 1), not ported yet; run on one device")
+                "BagInference(mesh=...) belongs to the embedding half of the "
+                "scale-out slice (ROADMAP Queue 1 item 4b), not ported yet; "
+                "run on one device")
         if not isinstance(aggregator, get_model(model)):
             raise ValueError(f"aggregator is a {type(aggregator).__name__}, "
                              f"not a {model!r} model")

@@ -63,7 +63,8 @@ class EmbedderStageConfig:
     # features); mirror of cli/compute_feats --space_to_depth
     space_to_depth: bool = True
     # shard each patch batch over the first N devices (0 = one device); the
-    # scale-out slice of the port, refused above 0 for now
+    # embedding half of the port's scale-out (ROADMAP Queue 1 item 4b),
+    # refused above 0 for now
     data_parallel: int = 0
 
 

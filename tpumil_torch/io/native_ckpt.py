@@ -9,6 +9,12 @@ no loadable copy: the new state goes to a sibling ``.inflight`` directory,
 then two renames swap it in, and the previous state survives as ``.prev``
 until the new one is in place; :func:`load_train_state` falls back to
 ``.prev`` when a crash came between the renames.
+
+The state of a multi-device run is replicated on every rank:
+:func:`save_sharded_train_state` writes it from rank 0 between two
+barriers, and :func:`load_sharded_train_state` loads it on every rank, so
+a state saved at one world size resumes at any other. The JAX package's
+orbax states are not read.
 """
 
 from __future__ import annotations
@@ -57,3 +63,29 @@ def load_train_state(path: str, map_location=None) -> Tuple[Any, dict]:
     with open(os.path.join(path, META)) as f:
         meta = json.load(f)
     return state, meta
+
+
+def save_sharded_train_state(path: str, state: Any, *,
+                             meta: Optional[dict] = None) -> None:
+    """:func:`save_train_state` from a process group (counterpart of the
+    JAX package's ``save_sharded_train_state``): the state is replicated,
+    so after a barrier rank 0 alone writes it, with the ``.inflight`` /
+    ``.prev`` swap, and a second barrier holds every rank until it is in
+    place. Without a process group it is :func:`save_train_state`."""
+    from tpumil_torch.parallel.mesh import barrier, is_main
+
+    barrier()
+    if is_main():
+        save_train_state(path, state, meta=meta)
+    barrier()
+
+
+def load_sharded_train_state(path: str, map_location=None
+                             ) -> Tuple[Any, dict]:
+    """:func:`load_train_state` on every rank, onto its own device
+    (``map_location``), after a barrier: whatever world size saved the
+    state, it loads on any other."""
+    from tpumil_torch.parallel.mesh import barrier
+
+    barrier()
+    return load_train_state(path, map_location)

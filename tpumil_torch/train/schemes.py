@@ -3,7 +3,8 @@ classic-MIL k-fold CV of train_mil.py (``run_mil_cv``) and the three WSI
 schemes of train_tcga.py over precomputed feature bags, 5-fold-cv,
 5-time-train+valid+test and 5-fold-cv-standalone-test, with fold and
 iteration markers for ``--resume`` and mid-fold train state. Every scheme
-trains any registry model.
+trains any registry model, on one device or, with ``inst_shard`` /
+``data_parallel``, on every rank of a process group (parallel/).
 
 Every host RNG stream is the JAX package's: the same seeds, the same
 draws, in the same order, so a run visits the same bags in the same order
@@ -11,6 +12,12 @@ draws, in the same order, so a run visits the same bags in the same order
 is drawn from ``torch.Generator().manual_seed(cfg.seed + fold)`` (WSI) or
 ``manual_seed(cfg.seed + 1000 * fold)`` (``run_mil_cv``), where the JAX
 package draws from ``PRNGKey`` of the same number.
+
+On a process group every rank trains and evaluates, as the JAX package's
+single controller does once; the decisions (best score, early stop,
+thresholds) are rank 0's values, broadcast, so that a last-bit difference
+between devices cannot split the ranks' control flow; only rank 0 logs and
+writes, and every rank reads the resume markers after a barrier.
 """
 
 from __future__ import annotations
@@ -36,12 +43,12 @@ from tpumil_torch.io import native_ckpt, torch_ckpt
 from tpumil_torch.models import dsmil
 from tpumil_torch.models.dsmil import DSMILConfig
 from tpumil_torch.models.registry import get_model
+from tpumil_torch.parallel.mesh import (barrier, broadcast_from_main,
+                                        default_inst_parallel, is_main,
+                                        make_mesh)
 from tpumil_torch.train import metrics
 from tpumil_torch.train.optim import cosine_annealing_lr
 from tpumil_torch.train.trainer import BagTrainer
-
-SCALE_OUT = ("comes with the scale-out slice of the port (ROADMAP.md, "
-             "Queue 1); train on one device")
 
 
 # ---------------------------------------------------------------------------
@@ -65,16 +72,17 @@ class MILBenchConfig:
     # "torch_default" (nn.Linear/Conv1d defaults, what train_mil.py trains
     # with; dsmil only)
     init: str = "orthogonal"
-    # instance sharding over devices; not ported yet
+    # split every bag's rows over N devices (parallel/bag_shard.py; the
+    # same trajectory as one device, to float tolerance); 0 = one device
     inst_shard: int = 0
     # None: the card; BagTrainer resolves it (and raises without one)
     device: Optional[torch.device] = None
 
 
-def _make_mil_trainer(cfg: MILBenchConfig) -> BagTrainer:
-    """The one trainer of every fold; raises on an unknown ``init``, on
-    ``torch_default`` for a model other than dsmil, and on ``inst_shard``,
-    before any data moves."""
+def check_mil_config(cfg: MILBenchConfig) -> None:
+    """Every refusal of ``run_mil_cv`` that needs no data and no process
+    group (an unknown ``init``, ``torch_default`` for a model other than
+    dsmil, an ``inst_shard`` the sharded trainer refuses)."""
     if cfg.init not in ("orthogonal", "torch_default"):
         # a typo ("torch-default", "default") must not silently measure
         # orthogonal init under the wrong name
@@ -85,10 +93,33 @@ def _make_mil_trainer(cfg: MILBenchConfig) -> BagTrainer:
             f"init='torch_default' is only implemented for model='dsmil' "
             f"(got {cfg.model!r}); use init='orthogonal'")
     if cfg.inst_shard:
-        raise NotImplementedError(f"inst_shard {SCALE_OUT}")
-    return BagTrainer(DSMILConfig(feats_size=cfg.num_feats, num_classes=1),
-                      weight_decay=cfg.weight_decay, model=cfg.model,
-                      device=cfg.device)
+        from tpumil_torch.parallel.bag_shard import check_inst_shard
+
+        check_inst_shard(cfg.inst_shard,
+                         DSMILConfig(feats_size=cfg.num_feats, num_classes=1),
+                         cfg.model, 0.0)
+
+
+def _make_mil_trainer(cfg: MILBenchConfig) -> BagTrainer:
+    """The one trainer of every fold; raises as :func:`check_mil_config`,
+    before any data moves."""
+    check_mil_config(cfg)
+    model_cfg = DSMILConfig(feats_size=cfg.num_feats, num_classes=1)
+    if cfg.inst_shard:
+        from tpumil_torch.parallel.bag_shard import InstanceShardedBagTrainer
+
+        return InstanceShardedBagTrainer(
+            model_cfg, weight_decay=cfg.weight_decay, model=cfg.model,
+            device=cfg.device, mesh=_mesh(cfg.inst_shard, cfg.inst_shard,
+                                          cfg.device))
+    return BagTrainer(model_cfg, weight_decay=cfg.weight_decay,
+                      model=cfg.model, device=cfg.device)
+
+
+def _mesh(n: int, inst: int, device: Optional[torch.device]):
+    """A mesh of ``n`` ranks with ``inst`` on the instance axis, on the
+    device type of ``device`` (None: the card)."""
+    return make_mesh(n, inst, "cuda" if device is None else device.type)
 
 
 def run_mil_cv(bags: List[Bag], cfg: MILBenchConfig,
@@ -107,6 +138,7 @@ def run_mil_cv(bags: List[Bag], cfg: MILBenchConfig,
     reference's per-epoch shuffle of each bag's instance rows is omitted:
     every registry model is invariant to it."""
     trainer = _make_mil_trainer(cfg)
+    log = _main_log(log)
     rng = np.random.default_rng(cfg.seed)
     if permutation is not None:
         if sorted(permutation) != list(range(len(bags))):
@@ -183,27 +215,66 @@ class WSITrainConfig:
     # also save the full in-fold train state every N eval boundaries, so a
     # crash resumes mid-fold on the exact trajectory (with resume=True)
     fold_state_every: Optional[int] = None
-    # multi-device modes of the JAX package; not ported yet
+    # split every bag's rows over N devices (parallel/bag_shard.py): the
+    # single-device trajectory to float tolerance, so NOT part of the
+    # experiment fingerprint (a run may resume on another shard count)
     inst_shard: int = 0
+    # one minibatch Adam step per chunk of bags over a (data, inst) mesh of
+    # N devices (parallel/sharded_train.py): a documented deviation from
+    # the reference's per-bag steps, so part of the fingerprint; exclusive
+    # with inst_shard
     data_parallel: int = 0
     # None: the card; BagTrainer resolves it (and raises without one)
     device: Optional[torch.device] = None
 
 
-def _make_trainer(cfg: WSITrainConfig) -> BagTrainer:
+def _model_cfg(cfg: WSITrainConfig) -> DSMILConfig:
+    return DSMILConfig(feats_size=cfg.feats_size, num_classes=cfg.num_classes,
+                       nonlinear=cfg.nonlinear, dropout_v=cfg.dropout_node)
+
+
+def check_config(cfg: WSITrainConfig) -> None:
+    """The refusals of the multi-device modes that need no data and no
+    process group, so that a CLI raises them before it starts workers."""
     if cfg.inst_shard and cfg.data_parallel:
         raise ValueError("inst_shard and data_parallel are mutually "
                          "exclusive (per-bag vs minibatch optimization)")
+    get_model(cfg.model)  # unknown names raise here
     if cfg.inst_shard:
-        raise NotImplementedError(f"inst_shard {SCALE_OUT}")
+        from tpumil_torch.parallel.bag_shard import check_inst_shard
+
+        check_inst_shard(cfg.inst_shard, _model_cfg(cfg), cfg.model,
+                         cfg.dropout_patch)
     if cfg.data_parallel:
-        raise NotImplementedError(f"data_parallel {SCALE_OUT}")
-    model_cfg = DSMILConfig(
-        feats_size=cfg.feats_size, num_classes=cfg.num_classes,
-        nonlinear=cfg.nonlinear, dropout_v=cfg.dropout_node)
-    return BagTrainer(model_cfg, weight_decay=cfg.weight_decay,
-                      dropout_patch=cfg.dropout_patch, model=cfg.model,
-                      device=cfg.device)
+        from tpumil_torch.parallel.sharded_train import check_data_parallel
+
+        sp = default_inst_parallel(cfg.data_parallel)
+        check_data_parallel(cfg.data_parallel // sp, sp, cfg.dropout_patch)
+
+
+def _make_trainer(cfg: WSITrainConfig) -> BagTrainer:
+    check_config(cfg)
+    kw = dict(weight_decay=cfg.weight_decay, dropout_patch=cfg.dropout_patch,
+              model=cfg.model, device=cfg.device)
+    if cfg.inst_shard:
+        from tpumil_torch.parallel.bag_shard import InstanceShardedBagTrainer
+
+        return InstanceShardedBagTrainer(
+            _model_cfg(cfg), mesh=_mesh(cfg.inst_shard, cfg.inst_shard,
+                                        cfg.device), **kw)
+    if cfg.data_parallel:
+        from tpumil_torch.parallel.sharded_train import DataParallelBagTrainer
+
+        return DataParallelBagTrainer(
+            _model_cfg(cfg), mesh=_mesh(
+                cfg.data_parallel, default_inst_parallel(cfg.data_parallel),
+                cfg.device), **kw)
+    return BagTrainer(_model_cfg(cfg), **kw)
+
+
+def _main_log(log: Callable[[str], None]) -> Callable[[str], None]:
+    """``log`` on rank 0, silence on the others."""
+    return log if is_main() else (lambda s: None)
 
 
 def _snapshot(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -281,10 +352,13 @@ def train_fold(trainer: BagTrainer, train_bags, test_bags,
     its fingerprint is ``state_fp``: the continuation is the uninterrupted
     trajectory."""
     if cfg.use_device_store:
+        min_bucket = _required_min_bucket(cfg)
         if not isinstance(train_bags, DeviceBagStore):
-            train_bags = DeviceBagStore(train_bags, device=trainer.device)
+            train_bags = DeviceBagStore(train_bags, min_bucket,
+                                        device=trainer.device)
         if not isinstance(test_bags, DeviceBagStore):
-            test_bags = DeviceBagStore(test_bags, device=trainer.device)
+            test_bags = DeviceBagStore(test_bags, min_bucket,
+                                       device=trainer.device)
     model, opt = trainer.init(init_generator)
     lr_of = cosine_annealing_lr(cfg.lr, cfg.num_epochs, cfg.eta_min)
     # valid defaults, so that a fold that never clears score 0 still exports
@@ -298,7 +372,8 @@ def train_fold(trainer: BagTrainer, train_bags, test_bags,
     if state_dir and cfg.resume and (os.path.isdir(state_dir)
                                      or os.path.isdir(state_dir + ".prev")):
         try:
-            st, meta = native_ckpt.load_train_state(state_dir, trainer.device)
+            st, meta = native_ckpt.load_sharded_train_state(
+                state_dir, trainer.device)
         except (OSError, RuntimeError, ValueError, KeyError,
                 pickle.UnpicklingError) as e:  # unreadable: fresh fold
             st, meta = None, {"fingerprint": f"<unreadable: {e}>"}
@@ -332,7 +407,8 @@ def train_fold(trainer: BagTrainer, train_bags, test_bags,
             model, opt, train_loss = trainer.train_epoch(
                 model, opt, train_bags, lr_of(epoch - 1), rng)
         epoch += k
-        res = evaluate_bags(trainer, model, test_bags, cfg, rng=rng)
+        res = broadcast_from_main(_decisive(
+            evaluate_bags(trainer, model, test_bags, cfg, rng=rng)))
         if cfg.verbose:
             auc_str = "|".join(f"class-{i}>>{a:.4f}"
                                for i, a in enumerate(res["aucs"]))
@@ -351,7 +427,7 @@ def train_fold(trainer: BagTrainer, train_bags, test_bags,
         if (state_dir and cfg.fold_state_every
                 and boundaries % cfg.fold_state_every == 0
                 and epoch <= cfg.num_epochs and counter <= cfg.stop_epochs):
-            native_ckpt.save_train_state(
+            native_ckpt.save_sharded_train_state(
                 state_dir,
                 {"params": model.state_dict(), "opt_state": opt.state_dict(),
                  "best_params": best["params"]},
@@ -370,19 +446,36 @@ def train_fold(trainer: BagTrainer, train_bags, test_bags,
     return best
 
 
-def _device_store(bags, trainer: BagTrainer) -> DeviceBagStore:
-    """One device-resident store of the whole dataset; splits are device
-    gathers (DeviceBagStore.subset). The trainer's "auto" route counts it
-    as resident beside every split it trains."""
-    store = DeviceBagStore(bags, device=trainer.device)
-    trainer.extra_resident_bytes = store.nbytes()
-    return store
+def _decisive(res: dict) -> dict:
+    """The values of an evaluation that decide what happens next."""
+    return {k: res[k] for k in ("loss", "avg_score", "aucs",
+                                "thresholds_optimal")}
+
+
+def _required_min_bucket(cfg) -> int:
+    """Smallest bucket a store may make for ``cfg`` (a WSITrainConfig or
+    MILBenchConfig): the sharded trainers raise their min_bucket to the
+    inst axis, and the store's buckets set the visitation order, which
+    must be the trainer's."""
+    n = 16  # DeviceBagStore's default
+    if getattr(cfg, "inst_shard", 0):
+        n = max(n, int(cfg.inst_shard))
+    if getattr(cfg, "data_parallel", 0):
+        n = max(n, default_inst_parallel(cfg.data_parallel))
+    return n
 
 
 def _global_store(bags, cfg, trainer: BagTrainer):
-    """The whole dataset's device store, or None when ``cfg`` (a
-    WSITrainConfig or MILBenchConfig) keeps the bags on the host."""
-    return _device_store(bags, trainer) if cfg.use_device_store else None
+    """One device-resident store of the whole dataset, or None when
+    ``cfg`` (a WSITrainConfig or MILBenchConfig) keeps the bags on the
+    host; splits are device gathers (DeviceBagStore.subset). The trainer's
+    "auto" route counts it as resident beside every split it trains."""
+    if not cfg.use_device_store:
+        return None
+    store = DeviceBagStore(bags, _required_min_bucket(cfg),
+                           device=trainer.device)
+    trainer.extra_resident_bytes = store.nbytes()
+    return store
 
 
 def _fold_views(store, bags, tr_idx, te_idx):
@@ -400,6 +493,7 @@ def run_5fold_cv(bags: List[Bag], cfg: WSITrainConfig,
                  save_dir: Optional[str] = None) -> dict:
     """train_tcga.py:252-294."""
     trainer = _make_trainer(cfg)
+    log = _main_log(log)
     store = _global_store(bags, cfg, trainer)
     scheme = "5-fold-cv"
     fold_results = []
@@ -439,6 +533,7 @@ def run_5time_tvt(bags: List[Bag], cfg: WSITrainConfig,
     completed iterations resume from ``iter_{k}.done.json``."""
     scheme = "5-time-train+valid+test"
     trainer = _make_trainer(cfg)
+    log = _main_log(log)
     store = _global_store(bags, cfg, trainer)
     results = []
     for it in range(5):
@@ -463,9 +558,9 @@ def run_5time_tvt(bags: List[Bag], cfg: WSITrainConfig,
                           _fold_init(cfg, it), log, save_cb,
                           state_dir=_fold_state_dir(save_dir, it),
                           state_fp=_cfg_fingerprint(cfg, scheme))
-        test_res = evaluate_bags(trainer, _load(trainer, best["params"]),
-                                 test_bags, cfg,
-                                 thresholds=best["thresholds"], rng=rng)
+        test_res = broadcast_from_main(_decisive(evaluate_bags(
+            trainer, _load(trainer, best["params"]), test_bags, cfg,
+            thresholds=best["thresholds"], rng=rng)))
         res = {"val_acc": best["acc"], "val_aucs": best["aucs"],
                "test_acc": test_res["avg_score"],
                "test_aucs": test_res["aucs"]}
@@ -492,6 +587,7 @@ def run_5fold_cv_standalone_test(bags: List[Bag], cfg: WSITrainConfig,
     from scipy.stats import mode
 
     trainer = _make_trainer(cfg)
+    log = _main_log(log)
     rng = np.random.default_rng(cfg.seed)
     store = _global_store(bags, cfg, trainer)
     if permutation is not None:
@@ -546,7 +642,7 @@ def run_5fold_cv_standalone_test(bags: List[Bag], cfg: WSITrainConfig,
         "folds": [{"acc": b["acc"], "aucs": b["aucs"],
                    "thresholds": b["thresholds"]} for b in fold_results],
     }
-    if save_dir:
+    if save_dir and is_main():
         os.makedirs(os.path.join(save_dir, "test"), exist_ok=True)
         with open(os.path.join(save_dir, "test", "test_list.json"), "w") as f:
             json.dump([b.name for b in holdout], f)
@@ -586,6 +682,7 @@ def _try_resume_iteration(cfg: WSITrainConfig, save_dir: Optional[str],
     belongs to this experiment."""
     if not (cfg.resume and save_dir):
         return None
+    barrier()  # rank 0 has finished writing the previous iteration
     marker = os.path.join(save_dir, f"iter_{it}.done.json")
     if not os.path.exists(marker):
         return None
@@ -602,7 +699,7 @@ def _try_resume_iteration(cfg: WSITrainConfig, save_dir: Optional[str],
 
 def _mark_iteration_done(save_dir: Optional[str], it: int, res: dict,
                          scheme: str, cfg: WSITrainConfig) -> None:
-    if not save_dir:
+    if not save_dir or not is_main():
         return
     os.makedirs(save_dir, exist_ok=True)
     with open(os.path.join(save_dir, f"iter_{it}.done.json"), "w") as f:
@@ -635,6 +732,7 @@ def _try_resume_fold(trainer: BagTrainer, cfg: WSITrainConfig,
     belongs to this experiment."""
     if not (cfg.resume and save_dir):
         return None
+    barrier()  # rank 0 has finished writing the previous fold
     marker = _fold_marker(save_dir, fold)
     pth = os.path.join(save_dir, f"fold_{fold}.pth")
     if not (os.path.exists(marker) and os.path.exists(pth)):
@@ -654,7 +752,7 @@ def _try_resume_fold(trainer: BagTrainer, cfg: WSITrainConfig,
 
 def _mark_fold_done(save_dir: Optional[str], fold: int, best: dict,
                     scheme: str, cfg: Optional[WSITrainConfig] = None) -> None:
-    if not save_dir:
+    if not save_dir or not is_main():
         return
     os.makedirs(save_dir, exist_ok=True)
     with open(_fold_marker(save_dir, fold), "w") as f:
@@ -667,7 +765,10 @@ def _mark_fold_done(save_dir: Optional[str], fold: int, best: dict,
 
 def _fold_saver(save_dir: str, fold: int, model: str = "dsmil"):
     """Best-model persistence of the reference's save_model:
-    ``fold_{k}.pth`` and its thresholds ``fold_{k}.json``."""
+    ``fold_{k}.pth`` and its thresholds ``fold_{k}.json``; None off rank
+    0, which alone writes."""
+    if not is_main():
+        return None
     os.makedirs(save_dir, exist_ok=True)
 
     def save_cb(params, thresholds):

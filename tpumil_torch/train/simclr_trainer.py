@@ -92,8 +92,9 @@ class SimCLRTrainer:
                  mesh=None, device: Optional[torch.device] = None):
         if mesh is not None:
             raise NotImplementedError(
-                "SimCLRTrainer(mesh=...) belongs to the scale-out slice "
-                "(ROADMAP Queue 1), not ported yet; run on one device")
+                "SimCLRTrainer(mesh=...) belongs to the embedding half of "
+                "the scale-out slice (ROADMAP Queue 1 item 4b), not ported "
+                "yet; run on one device")
         mb = cfg.grad_cache_microbatch
         if mb is not None and cfg.batch_size % mb:
             raise ValueError(f"grad_cache_microbatch {mb} must divide "
