@@ -1,7 +1,7 @@
 """Drive the PyTorch port's serving, training (WSI and classic MIL),
 feature-extraction, slide-streaming, inference-and-heatmap and SimCLR
 pretraining paths, the bf16 giant-bag forward, the five-stage pipeline and
-the scale-out trainers (at world 1) once on one CUDA card (sm_90a).
+both halves of scale-out (at world 1) once on one CUDA card (sm_90a).
 
     python3 chip_smoke.py
 
@@ -100,6 +100,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   on [train_wsi]'s dataset (the inst-sharded folds equal the
                   single-device run's); a sharded fold state crashed and
                   resumed mid-fold; --inst_shard 2 refused on one card
+ 19. scale_out_embed -- the embedding half of scale-out at world 1 on
+                  NCCL: FeatureExtractor(mesh) on 2 batches of 128 224^2
+                  JPEGs bitwise the single-device features (and 37 rows
+                  through embed_arrays), K5/K4 launches on the sharded path
+                  (2 / 38), ms per batch against the single-device path in
+                  turns, the host ms of its 3 collectives a batch; one
+                  sharded SimCLR step (bf16, batch 64) against the
+                  single-device one (loss rtol 1e-4, weights within 2 lr),
+                  ms per step in turns; compute_feats --data_parallel 1 on
+                  [compute_feats]'s tree (CSV bytes equal), attention_map
+                  with and without --data_parallel 1 on one bag (equal
+                  score CSVs), serve --data_parallel 1 answering /v1/embed
+                  (rows bitwise the single-device service's, SIGTERM exits
+                  0), simclr_train --data_parallel 1 for one epoch, and
+                  --data_parallel 2 refused on one card
 Then one JSON line of kernel results (each with its bound: the larger of
 its bytes over the memory rate and its operations over the peak rate of
 their type) and, last, the device JSON line.
@@ -1444,10 +1459,12 @@ def run_cli(module: str, args, cwd: str) -> str:
     return proc.stdout
 
 
-def phase_compute_feats(gpu: str) -> int:
+def phase_compute_feats(gpu: str):
     """The feature-extraction path: the CLI a user runs, then the same
     extraction in-process, its stem in K5, against the same net with the
-    conv-route stem, then train_wsi on the CSVs the CLI wrote."""
+    conv-route stem, then train_wsi on the CSVs the CLI wrote. Returns the
+    K5 launch count, and the directory (and the CLI's wall) that
+    [scale_out_embed] runs the CLI in again; the caller removes it."""
     from tpumil_torch.data.feature_store import read_bag_csv, read_master_csv
     from tpumil_torch.data.patches import (PatchBatchLoader, list_bag_dirs,
                                            list_patches)
@@ -1459,105 +1476,105 @@ def phase_compute_feats(gpu: str) -> int:
     from tools.extract_profile import write_tree
 
     dev = torch.device("cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        write_tree(os.path.join(tmp, "WSI"), CF_CLASSES * CF_BAGS, CF_PATCHES,
-                   224, 7)
-        n = CF_CLASSES * CF_BAGS * CF_PATCHES
-        model = embedder.init_params(0, embedder.EmbedderConfig(),
-                                     torch.device("cpu"))
-        torch.save(embedder.export_embedder_state_dict(model),
-                   os.path.join(tmp, "model.pth"))
-        t0 = time.perf_counter()
-        out = run_cli("tpumil_torch.cli.compute_feats",
-                      ["--device", "cuda", "--dataset", "synth", "--weights",
-                       "model.pth", "--num_classes", str(C)], tmp)
-        wall = time.perf_counter() - t0
-        (throughput,) = [l for l in out.splitlines()
-                         if l.startswith("Throughput")]
-        log(f"[compute_feats] python -m tpumil_torch.cli.compute_feats "
-            f"--device cuda (f32, batch {B}) on {n} patches of 224^2: exit 0 "
-            f"in {wall:.2f} s; {throughput}; {gpu}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cf_")
+    write_tree(os.path.join(tmp, "WSI"), CF_CLASSES * CF_BAGS, CF_PATCHES,
+               224, 7)
+    n = CF_CLASSES * CF_BAGS * CF_PATCHES
+    model = embedder.init_params(0, embedder.EmbedderConfig(),
+                                 torch.device("cpu"))
+    torch.save(embedder.export_embedder_state_dict(model),
+               os.path.join(tmp, "model.pth"))
+    t0 = time.perf_counter()
+    out = run_cli("tpumil_torch.cli.compute_feats",
+                  ["--device", "cuda", "--dataset", "synth", "--weights",
+                   "model.pth", "--num_classes", str(C)], tmp)
+    wall = time.perf_counter() - t0
+    (throughput,) = [l for l in out.splitlines()
+                     if l.startswith("Throughput")]
+    log(f"[compute_feats] python -m tpumil_torch.cli.compute_feats "
+        f"--device cuda (f32, batch {B}) on {n} patches of 224^2: exit 0 "
+        f"in {wall:.2f} s; {throughput}; {gpu}")
 
-        # in-process, from the embedder the CLI exported, in the CLI's
-        # configuration; in turns the stem in K5 (the path whose launches
-        # are counted: the first K5 run) and in the conv route
-        bag_dirs = list_bag_dirs(os.path.join(tmp, "WSI"), "synth", "single")
-        paths = [p for d in bag_dirs for p in list_patches(d)]
-        ckpt = os.path.join(tmp, "embedder", "synth", "embedder.pth")
-        ex = FeatureExtractor(embedder.load_simclr_checkpoint(
-            ckpt, embedder.EmbedderConfig(space_to_depth=True), dev), B, 224, 8)
+    # in-process, from the embedder the CLI exported, in the CLI's
+    # configuration; in turns the stem in K5 (the path whose launches
+    # are counted: the first K5 run) and in the conv route
+    bag_dirs = list_bag_dirs(os.path.join(tmp, "WSI"), "synth", "single")
+    paths = [p for d in bag_dirs for p in list_patches(d)]
+    ckpt = os.path.join(tmp, "embedder", "synth", "embedder.pth")
+    ex = FeatureExtractor(embedder.load_simclr_checkpoint(
+        ckpt, embedder.EmbedderConfig(space_to_depth=True), dev), B, 224, 8)
 
-        def on(route, fn):
-            """fn() with the stem in K5 or in the conv route."""
-            if route == "conv":
-                resnet.fused_stem = conv_route_stem
-            try:
-                return fn()
-            finally:
-                resnet.fused_stem = fused_stem
+    def on(route, fn):
+        """fn() with the stem in K5 or in the conv route."""
+        if route == "conv":
+            resnet.fused_stem = conv_route_stem
+        try:
+            return fn()
+        finally:
+            resnet.fused_stem = fused_stem
 
-        counts, rates = {}, {}
-        for route in ("k5", "conv", "conv", "k5"):
-            ex.stats = ExtractorStats()
-            fused_stem.launches = fused_instance_norm.launches = 0
-            on(route, lambda: compute_feats(bag_dirs, ex,
-                                            os.path.join(tmp, route)))
-            torch.cuda.synchronize()
-            counts.setdefault(route, (fused_stem.launches,
-                                      fused_instance_norm.launches))
-            rates.setdefault(route, []).append(ex.stats.patches_per_sec)
-        feats = {route: on(route, lambda: ex.embed_paths(paths))
-                 for route in ("k5", "conv")}
-        names = {"k5": "K5 stem (the path)", "conv": "conv-route stem"}
-        for route in ("k5", "conv"):
-            log(f"[compute_feats] in-process compute_feats, {names[route]}: "
-                f"{' / '.join(f'{r:.1f}' for r in rates[route])} patches/s "
-                f"over {n} patches; K5/K4 launches {counts[route]}; {gpu}")
-        # the host decode alone, as the extractor's loader runs it
-        t0 = time.perf_counter()
-        for _ in PatchBatchLoader(paths, B, 224, 8):
-            pass
-        log(f"[compute_feats] host JPEG decode alone (8 threads, batch {B}): "
-            f"{n / (time.perf_counter() - t0):.1f} patches/s on "
-            f"{os.cpu_count()} cores")
-        k5, k4 = counts["k5"]
-        if k5 == 0 or k4 == 0 or counts["conv"][0] != 0:
-            raise AssertionError(f"K5/K4 launches: the path {counts['k5']}, "
-                                 f"the conv route {counts['conv']}")
-        got, want = feats["k5"], feats["conv"]
-        if got.shape != (n, 512) or not np.isfinite(got).all():
-            raise AssertionError(f"bad features {got.shape}")
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-        # the CLI's CSVs against the in-process path's: %.4f text, so one
-        # last-digit flip on top of the 1e-4 bar
-        csv_err = 0.0
-        for d in bag_dirs:
-            rel = os.path.join(*d.split(os.path.sep)[-2:]) + ".csv"
-            a = read_bag_csv(os.path.join(tmp, "datasets", "synth", rel))
-            b = read_bag_csv(os.path.join(tmp, "k5", rel))
-            np.testing.assert_allclose(b, a, rtol=0, atol=1.5e-4)
-            csv_err = max(csv_err, float(np.abs(a - b).max()))
-        master = read_master_csv(os.path.join(tmp, "datasets", "synth",
-                                              "synth.csv"))
-        if len(master) != CF_CLASSES * CF_BAGS:
-            raise AssertionError(f"master CSV has {len(master)} rows")
-        log(f"[compute_feats] K5 stem vs conv-route stem features: max_abs_err "
-            f"{np.abs(got - want).max():.3e} (atol 1e-4, rtol 1e-4); the "
-            f"CLI's CSVs vs the in-process path's {csv_err:.1e} (atol "
-            f"1.5e-4); master CSV {len(master)} bags")
+    counts, rates = {}, {}
+    for route in ("k5", "conv", "conv", "k5"):
+        ex.stats = ExtractorStats()
+        fused_stem.launches = fused_instance_norm.launches = 0
+        on(route, lambda: compute_feats(bag_dirs, ex,
+                                        os.path.join(tmp, route)))
+        torch.cuda.synchronize()
+        counts.setdefault(route, (fused_stem.launches,
+                                  fused_instance_norm.launches))
+        rates.setdefault(route, []).append(ex.stats.patches_per_sec)
+    feats = {route: on(route, lambda: ex.embed_paths(paths))
+             for route in ("k5", "conv")}
+    names = {"k5": "K5 stem (the path)", "conv": "conv-route stem"}
+    for route in ("k5", "conv"):
+        log(f"[compute_feats] in-process compute_feats, {names[route]}: "
+            f"{' / '.join(f'{r:.1f}' for r in rates[route])} patches/s "
+            f"over {n} patches; K5/K4 launches {counts[route]}; {gpu}")
+    # the host decode alone, as the extractor's loader runs it
+    t0 = time.perf_counter()
+    for _ in PatchBatchLoader(paths, B, 224, 8):
+        pass
+    log(f"[compute_feats] host JPEG decode alone (8 threads, batch {B}): "
+        f"{n / (time.perf_counter() - t0):.1f} patches/s on "
+        f"{os.cpu_count()} cores")
+    k5, k4 = counts["k5"]
+    if k5 == 0 or k4 == 0 or counts["conv"][0] != 0:
+        raise AssertionError(f"K5/K4 launches: the path {counts['k5']}, "
+                             f"the conv route {counts['conv']}")
+    got, want = feats["k5"], feats["conv"]
+    if got.shape != (n, 512) or not np.isfinite(got).all():
+        raise AssertionError(f"bad features {got.shape}")
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    # the CLI's CSVs against the in-process path's: %.4f text, so one
+    # last-digit flip on top of the 1e-4 bar
+    csv_err = 0.0
+    for d in bag_dirs:
+        rel = os.path.join(*d.split(os.path.sep)[-2:]) + ".csv"
+        a = read_bag_csv(os.path.join(tmp, "datasets", "synth", rel))
+        b = read_bag_csv(os.path.join(tmp, "k5", rel))
+        np.testing.assert_allclose(b, a, rtol=0, atol=1.5e-4)
+        csv_err = max(csv_err, float(np.abs(a - b).max()))
+    master = read_master_csv(os.path.join(tmp, "datasets", "synth",
+                                          "synth.csv"))
+    if len(master) != CF_CLASSES * CF_BAGS:
+        raise AssertionError(f"master CSV has {len(master)} rows")
+    log(f"[compute_feats] K5 stem vs conv-route stem features: max_abs_err "
+        f"{np.abs(got - want).max():.3e} (atol 1e-4, rtol 1e-4); the "
+        f"CLI's CSVs vs the in-process path's {csv_err:.1e} (atol "
+        f"1.5e-4); master CSV {len(master)} bags")
 
-        t0 = time.perf_counter()
-        out = run_cli("tpumil_torch.cli.train_wsi",
-                      ["--device", "cuda", "--dataset", "synth",
-                       "--num_classes", str(C), "--feats_size", "512",
-                       "--num_epochs", "1"], tmp)
-        final = [l for l in out.splitlines() if "Mean" in l]
-        if not final:
-            raise AssertionError("train_wsi printed no final results")
-        log(f"[compute_feats] train_wsi --device cuda --num_epochs 1 on the "
-            f"CSVs: exit 0 in {time.perf_counter() - t0:.2f} s; "
-            f"{'; '.join(final)}")
-    return k5
+    t0 = time.perf_counter()
+    out = run_cli("tpumil_torch.cli.train_wsi",
+                  ["--device", "cuda", "--dataset", "synth",
+                   "--num_classes", str(C), "--feats_size", "512",
+                   "--num_epochs", "1"], tmp)
+    final = [l for l in out.splitlines() if "Mean" in l]
+    if not final:
+        raise AssertionError("train_wsi printed no final results")
+    log(f"[compute_feats] train_wsi --device cuda --num_epochs 1 on the "
+        f"CSVs: exit 0 in {time.perf_counter() - t0:.2f} s; "
+        f"{'; '.join(final)}")
+    return k5, {"tmp": tmp, "cli_wall": wall}
 
 
 def pipeline_slides(root: str, seed: int) -> int:
@@ -2643,6 +2660,302 @@ def phase_scale_out(gpu: str, wsi: dict) -> None:
         f"work: {proc.stderr.strip().splitlines()[-1]}")
 
 
+def _batch_ms(ex, batch, iters: int = 20) -> float:
+    """ms per synced ``embed_arrays`` of ``batch`` (host clock), after
+    three warm-up calls."""
+    for _ in range(3):
+        ex.embed_arrays(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        ex.embed_arrays(batch)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _simclr_ms(tr, model, opt, u, images, iters: int = 10) -> float:
+    """ms per synced train step (host clock), after two warm-up steps."""
+    for _ in range(2):
+        tr.train_step(model, opt, u, images, tr.cfg.lr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss = tr.train_step(model, opt, u, images, tr.cfg.lr)
+    float(loss)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def phase_scale_out_embed(gpu: str, cf: dict) -> dict:
+    """The embedding half of scale-out at world 1 on NCCL (the one card;
+    NCCL refuses two ranks on one GPU): FeatureExtractor(mesh=...) against
+    the single-device extractor (bitwise) and timed against it in turns,
+    with K5/K4 counted on the sharded path; one sharded SimCLR step
+    against the single-device step; then the CLIs with --data_parallel 1
+    beside their single-device runs: compute_feats on [compute_feats]'s
+    tree, attention_map on one of its bags, serve answering /v1/embed,
+    simclr_train for one epoch; --data_parallel 2 refused on one card.
+    Returns the sharded path's K5/K4 launches."""
+    import signal
+
+    import torch.distributed as dist
+
+    from tpumil_torch.data.patches import list_bag_dirs, list_patches
+    from tpumil_torch.infer.client import ServingClient
+    from tpumil_torch.infer.features import FeatureExtractor
+    from tpumil_torch.infer.service import InferenceService
+    from tpumil_torch.models import embedder
+    from tpumil_torch.models.simclr import SimCLRConfig
+    from tpumil_torch.ops.augment import draw_uniforms
+    from tpumil_torch.ops.instance_norm import fused_instance_norm
+    from tpumil_torch.ops.stem import fused_stem
+    from tpumil_torch.parallel import mesh
+    from tpumil_torch.train.simclr_trainer import (SimCLRTrainConfig,
+                                                   SimCLRTrainer)
+
+    dev = torch.device("cuda")
+    tmp = cf["tmp"]
+    rng = np.random.default_rng(12)
+    bag_dirs = list_bag_dirs(os.path.join(tmp, "WSI"), "synth", "single")
+    paths = [p for d in bag_dirs for p in list_patches(d)][:2 * B]
+    emb = embedder.load_simclr_checkpoint(
+        os.path.join(tmp, "model.pth"), embedder.EmbedderConfig(num_classes=C),
+        dev)
+    with mesh.data_parallel(1, "extraction", "cuda") as world:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"expected a world of 1 on nccl, got "
+                                 f"{dist.get_world_size()} on "
+                                 f"{dist.get_backend()}")
+        single = FeatureExtractor(emb, B, 224, 8)
+        sharded = FeatureExtractor(emb, B, 224, 8, mesh=world)
+        want = single.embed_paths(paths)
+        # the sharded path starts here
+        fused_stem.launches = fused_instance_norm.launches = 0
+        mesh.feed_collective.calls = 0
+        got = sharded.embed_paths(paths)
+        torch.cuda.synchronize()
+        launches = (fused_stem.launches, fused_instance_norm.launches)
+        calls = mesh.feed_collective.calls
+        if got.shape != (2 * B, 512) or not np.isfinite(got).all() \
+                or not np.array_equal(got, want):
+            raise AssertionError(f"sharded features {got.shape} differ from "
+                                 f"the single-device ones by "
+                                 f"{np.abs(got - want).max()}")
+        if launches != (2, 2 * 19) or calls != 2 * 3:
+            raise AssertionError(f"sharded path: K5/K4 launches {launches}, "
+                                 f"{calls} collectives")
+        odd = rng.integers(0, 256, (37, 224, 224, 3), np.uint8)
+        if not np.array_equal(sharded.embed_arrays(odd),
+                              single.embed_arrays(odd)):
+            raise AssertionError("embed_arrays of 37 rows: sharded != single")
+        batch = rng.integers(0, 256, (B, 224, 224, 3), np.uint8)
+        mesh.feed_collective.seconds = 0.0
+        mesh.feed_collective.calls = 0
+        mesh.feed_collective.by_op = {}
+        t = [_batch_ms(single, batch), _batch_ms(sharded, batch),
+             _batch_ms(sharded, batch), _batch_ms(single, batch)]
+        batches = mesh.feed_collective.calls / 3
+        coll_ms = mesh.feed_collective.seconds / batches * 1e3
+        by_op = ", ".join(f"{name} {sec / n * 1e3:.3f}" for name, (n, sec)
+                          in mesh.feed_collective.by_op.items())
+        log(f"[scale_out_embed] FeatureExtractor(mesh) at world 1 (nccl): "
+            f"embed_paths of {2 * B} JPEGs (2 batches of {B}, 224^2, f32) "
+            f"bitwise the single-device features, embed_arrays of 37 rows "
+            f"too; K5/K4 launches {launches}, {calls} collectives; ms per "
+            f"synced batch of {B} (host clock, mean of 20, in turns): single "
+            f"{t[0]:.3f} / {t[3]:.3f}, sharded {t[1]:.3f} / {t[2]:.3f}; "
+            f"host ms in the 3 collectives a batch {coll_ms:.3f} ({by_op} "
+            f"ms a call); {gpu}")
+
+        # one SimCLR step, bf16 at batch 64, from the same init and draws
+        images = torch.from_numpy(rng.integers(0, 256, (64, 224, 224, 3),
+                                               np.uint8)).to(dev)
+        u = draw_uniforms(torch.Generator().manual_seed(5), 64)
+        cfg = SimCLRTrainConfig(batch_size=64)
+        runs = {}
+        for name, on in (("single", None), ("sharded", world)):
+            tr = SimCLRTrainer(SimCLRConfig(), cfg, mesh=on, device=dev)
+            model, opt = tr.init(0)
+            start = {k: v.detach().clone() for k, v in
+                     model.state_dict().items()}
+            loss = float(tr.train_step(model, opt, u, images, cfg.lr))
+            runs[name] = (tr, model, opt, loss, start)
+        (trs, ms_, os_, ls, start), (trd, md, od, ld, _) = \
+            runs["single"], runs["sharded"]
+        if abs(ld - ls) > 1e-4 * abs(ls) or not np.isfinite(ld):
+            raise AssertionError(f"sharded SimCLR loss {ld} vs {ls}")
+        # one Adam step moves each weight by at most ~lr: the two steps'
+        # weights may differ by up to 2 lr where a gradient element's sign
+        # differs between two runs of the nondeterministic cuDNN backward
+        gap, moved, differ, total = 0.0, 0.0, 0, 0
+        sd, ss = md.state_dict(), ms_.state_dict()
+        for k, v in ss.items():
+            d = (sd[k].float() - v.float()).abs()
+            gap = max(gap, float(d.max()))
+            moved = max(moved, float((v.float() - start[k].float())
+                                     .abs().max()))
+            differ += int((d > 0).sum())
+            total += d.numel()
+        if gap > 2 * cfg.lr * (1 + 1e-3):
+            raise AssertionError(f"sharded SimCLR weights {gap} from the "
+                                 f"single-device step's (bar {2 * cfg.lr})")
+        st = [_simclr_ms(trs, ms_, os_, u, images),
+              _simclr_ms(trd, md, od, u, images),
+              _simclr_ms(trd, md, od, u, images),
+              _simclr_ms(trs, ms_, os_, u, images)]
+        log(f"[scale_out_embed] SimCLR step, bf16, batch 64, world 1: loss "
+            f"{ld:.6f} vs single-device {ls:.6f} (rtol 1e-4); weights after "
+            f"one Adam step within {gap:.3e} of the single-device step's "
+            f"(bar 2 lr = {2 * cfg.lr:.0e}; the step moved them up to "
+            f"{moved:.3e}; {differ} of {total} differ); ms per step (host "
+            f"clock, synced, mean of 10, in turns): single {st[0]:.2f} / "
+            f"{st[3]:.2f}, sharded {st[1]:.2f} / {st[2]:.2f}")
+        del runs, trs, ms_, os_, trd, md, od
+        torch.cuda.empty_cache()
+
+    # the CLIs, side by side
+    am = os.path.join(tmp, "am_bags")
+    os.makedirs(am)
+    os.symlink(bag_dirs[0], os.path.join(am, "bag0"))
+    agg = os.path.join(REPO, "tests", "data", "tcga_aggregator.pth")
+    env = dict(os.environ, PYTHONPATH=REPO)
+
+    def am_args(tag):
+        return ["--device", "cuda", "--embedder_weights", "model.pth",
+                "--aggregator_weights", agg, "--bag_path", "am_bags",
+                "--patch_ext", "jpeg", "--map_path", f"maps_{tag}",
+                "--export_scores", "1", "--score_path", f"scores_{tag}",
+                "--seed", "0"]
+
+    cmds = {
+        "compute_feats": ("tpumil_torch.cli.compute_feats",
+                          ["--device", "cuda", "--dataset", "synth",
+                           "--weights", "model.pth", "--num_classes", str(C),
+                           "--out_root", "dp_datasets", "--data_parallel",
+                           "1"]),
+        "attention_map": ("tpumil_torch.cli.attention_map", am_args("one")),
+        "attention_map_dp": ("tpumil_torch.cli.attention_map",
+                             am_args("dp") + ["--data_parallel", "1"]),
+        "simclr_train": ("tpumil_torch.cli.simclr_train",
+                         ["--device", "cuda", "--dataset", "synth",
+                          "--wsi_root", "WSI", "--batch_size", "64",
+                          "--epochs", "1", "--config", "", "--run_dir",
+                          "simclr_dp", "--data_parallel", "1"]),
+        "refused": ("tpumil_torch.cli.compute_feats",
+                    ["--device", "cuda", "--dataset", "synth", "--weights",
+                     "model.pth", "--out_root", "dp2", "--data_parallel",
+                     "2"]),
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", mod, *args], cwd=tmp, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, (mod, args) in cmds.items()}
+    results = {}
+
+    def collect(name):
+        """Each command's output and its wall, taken when it ends."""
+        out, err = procs[name].communicate(timeout=600)
+        results[name] = (procs[name].returncode, out, err,
+                         time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=collect, args=(name,), daemon=True)
+               for name in procs]
+    for w in waiters:
+        w.start()
+    server = subprocess.Popen(
+        [sys.executable, "-m", "tpumil_torch.cli.serve", "--device", "cuda",
+         "--embedder_weights", "model.pth", "--num_classes", str(C),
+         "--port", "0", "--data_parallel", "1"], cwd=tmp, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # the single-device service's rows, in-process, meanwhile
+        reqs = [rng.integers(0, 256, (n, 224, 224, 3), np.uint8)
+                for n in (100, 37, 200)]
+        ref = InferenceService(embedder.load_simclr_checkpoint(
+            os.path.join(tmp, "model.pth"),
+            embedder.EmbedderConfig(num_classes=C), dev), dev, batch_size=B)
+        try:
+            want_rows = [ref.embed(r) for r in reqs]
+        finally:
+            ref.close()
+        url = None
+        for line in server.stdout:
+            m = re.search(r"http://[\d.]+:\d+", line)
+            if m:
+                url = m.group(0)
+                break
+        if url is None:
+            raise RuntimeError(f"serve --data_parallel 1 did not start:\n"
+                               f"{server.stderr.read()[-3000:]}")
+        client = ServingClient(url, timeout=300)
+        got_rows = [client.embed(r) for r in reqs]
+        for g, w in zip(got_rows, want_rows):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"served rows differ from the "
+                                     f"single-device service's by "
+                                     f"{np.abs(g - w).max()}")
+        server.send_signal(signal.SIGTERM)
+        out, err = server.communicate(timeout=120)
+        if server.returncode != 0 or "draining" not in out:
+            raise RuntimeError(f"serve --data_parallel 1 exited "
+                               f"{server.returncode}:\n{out[-2000:]}\n"
+                               f"{err[-2000:]}")
+        log(f"[scale_out_embed] serve --data_parallel 1: {len(reqs)} "
+            f"/v1/embed requests of {[len(r) for r in reqs]} rows equal the "
+            f"single-device service's bitwise; SIGTERM -> exit 0 after "
+            f"'draining'")
+        for w in waiters:
+            w.join()
+    finally:
+        for proc in (server, *procs.values()):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
+    for name, (rc, out, err, _) in results.items():
+        if (rc != 0) != (name == "refused"):
+            raise RuntimeError(f"{name} exited {rc}:\n{out[-3000:]}\n"
+                               f"{err[-3000:]}")
+    rc, out, err, _ = results["refused"]
+    msg = "requested 2 devices but only 1 are available"
+    if msg not in err or "Use pretrained" in out:
+        raise AssertionError(f"--data_parallel 2 on one card:\n{out[-2000:]}"
+                             f"\n{err[-2000:]}")
+    refusal = err.strip().splitlines()[-1]
+    n_csv = 0
+    for d in bag_dirs:
+        rel = os.path.join(*d.split(os.path.sep)[-2:]) + ".csv"
+        with open(os.path.join(tmp, "datasets", "synth", rel), "rb") as f, \
+                open(os.path.join(tmp, "dp_datasets", "synth", rel),
+                     "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"compute_feats --data_parallel 1: "
+                                     f"{rel} differs")
+        n_csv += 1
+    with open(os.path.join(tmp, "scores_one", "bag0.csv"), "rb") as f, \
+            open(os.path.join(tmp, "scores_dp", "bag0.csv"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("attention_map --data_parallel 1: the "
+                                 "scores CSV differs")
+    simclr_out = results["simclr_train"][1]
+    if "best valid loss" not in simclr_out or not os.path.exists(
+            os.path.join(tmp, "simclr_dp", "checkpoints", "model.pth")):
+        raise AssertionError(f"simclr_train --data_parallel 1:\n"
+                             f"{simclr_out[-2000:]}")
+    walls = {name: r[3] for name, r in results.items()}
+    log(f"[scale_out_embed] CLIs side by side (s from their start): "
+        f"compute_feats --data_parallel 1 exit 0 in "
+        f"{walls['compute_feats']:.2f} ({cf['cli_wall']:.2f} alone in "
+        f"[compute_feats]), its {n_csv} CSVs equal the single-device run's "
+        f"bytes; attention_map {walls['attention_map']:.2f}, with "
+        f"--data_parallel 1 {walls['attention_map_dp']:.2f}, equal score "
+        f"CSVs; simclr_train --data_parallel 1 (1 epoch, batch 64, "
+        f"{len(bag_dirs) * CF_PATCHES} JPEGs) {walls['simclr_train']:.2f}: "
+        f"{[l for l in simclr_out.splitlines() if 'best valid' in l][0]}; "
+        f"--data_parallel 2 on one card: exit {rc} in "
+        f"{walls['refused']:.2f} before any work: {refusal}")
+    return {"launches": launches, "batch_ms": t, "collective_ms": coll_ms,
+            "step_ms": st}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2658,16 +2971,20 @@ def main() -> int:
     wsi = phase_train_wsi()
     phase_train_mil(gpu)
     stem = phase_stem(gpu)[torch.float32]
-    k5_launches = phase_compute_feats(gpu)
-    phase_slide_feats(gpu)
-    phase_attention_map(gpu)
-    phase_simclr(gpu)
-    pool_bf16 = phase_pool_bf16(gpu, compiler_log)
-    phase_pipeline(gpu)
+    k5_launches, cf = phase_compute_feats(gpu)
     try:
-        phase_scale_out(gpu, wsi)
+        phase_slide_feats(gpu)
+        phase_attention_map(gpu)
+        phase_simclr(gpu)
+        pool_bf16 = phase_pool_bf16(gpu, compiler_log)
+        phase_pipeline(gpu)
+        try:
+            phase_scale_out(gpu, wsi)
+        finally:
+            shutil.rmtree(wsi["tmp"], ignore_errors=True)
+        phase_scale_out_embed(gpu, cf)
     finally:
-        shutil.rmtree(wsi["tmp"], ignore_errors=True)
+        shutil.rmtree(cf["tmp"], ignore_errors=True)
     kernels = [{
         "name": "fused_instance_norm", "route": "cuda",
         "source": "tpumil_torch/csrc/instance_norm.cu",

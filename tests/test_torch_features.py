@@ -144,8 +144,18 @@ def test_compute_feats_matches_jax(tmp_path, weights):
     features.compute_feats(dirs, pex, str(tmp_path / "port"))
     _assert_same_csvs(str(tmp_path / "port"), str(tmp_path / "jax"), 512)
     assert pex.stats.patches == 18 and pex.stats.patches_per_sec > 0
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        features.FeatureExtractor(weights[1], mesh=object())
+    # a data-parallel mesh of one rank: the same batches through the
+    # sharded forward, bitwise the single-device CSVs
+    from tpumil_torch.parallel import mesh
+
+    with mesh.data_parallel(1, "extraction", "cpu") as m:
+        sharded = features.FeatureExtractor(weights[1], pex.batch_size,
+                                            pex.patch_size, 2, mesh=m)
+        features.compute_feats(dirs, sharded, str(tmp_path / "world1"))
+    for path in glob.glob(str(tmp_path / "port" / "*" / "*.csv")):
+        with open(path) as f, open(path.replace(
+                os.sep + "port" + os.sep, os.sep + "world1" + os.sep)) as g:
+            assert f.read() == g.read(), path
 
 
 @pytest.mark.parametrize("fusion,width", [("cat", 1024), ("fusion", 512)])
@@ -232,9 +242,14 @@ def test_compute_feats_cli_matches_jax_cli(tmp_path, monkeypatch, weights):
 
 
 def test_cli_unported_modes_and_the_card_raise(tmp_path, monkeypatch):
+    """--data_parallel's refusals (JAX's messages) and the card's, before
+    any worker starts or file is written."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        cli.main(["--data_parallel", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="must be >= 0, got -1"):
+        cli.main(["--data_parallel", "-1", "--device", "cpu"])
+    with pytest.raises(ValueError, match="batch_size 128 must divide by"):
+        cli.main(["--data_parallel", "3", "--device", "cpu"])
+    assert not os.listdir(tmp_path)
     with pytest.raises(ValueError, match="batch normalization"):
         cli.main(["--weights", "ImageNet", "--device", "cpu"])
     assert cli.build_parser().parse_args([]).device == "cuda"

@@ -245,10 +245,18 @@ def test_keep_maps_and_missing_bag(tcga_pair, two_bags, tmp_path):
 
 
 def test_bag_inference_refusals():
+    """A mesh of more devices than the process group holds is refused
+    (JAX's take_devices), one of one rank is taken; a wrong model too."""
+    from tpumil_torch.parallel import mesh
+
     emb = embedder.Embedder(embedder.EmbedderConfig(num_classes=2), CPU)
     agg = get_model("dsmil")(DSMILConfig(512, 2), CPU)
-    with pytest.raises(NotImplementedError, match="scale-out slice"):
-        heatmap.BagInference(emb, agg, mesh=object())
+    with mesh.data_parallel(1, "embedding", "cpu") as m:
+        assert heatmap.BagInference(emb, agg, mesh=m).extractor._sharded \
+            .n_shard == 1
+        with pytest.raises(ValueError, match="requested 2 devices but only "
+                                             "1 are available"):
+            mesh.data_parallel_mesh(2, device_type="cpu")
     with pytest.raises(ValueError, match="not a 'abmil' model"):
         heatmap.BagInference(emb, agg, model="abmil")
 

@@ -61,9 +61,8 @@ def _yaml(tmp_path, name, text):
 
 
 # (yaml body, stages, message): the JAX pipeline's checks first, then the
-# port's refusal of embedder.data_parallel above 0 (the embedding half of
-# scale-out) and the device probe of the train stage's fields (no card here,
-# or one: fewer than 2 or 4)
+# device probe of the embedding and train stages' fields (no card here, or
+# one: fewer than 2, 4 or 8)
 REFUSALS = [
     ("", "tile,resize", "unknown stage 'resize'"),
     ("embedder:\n  data_parallel: -2\n", "feats", ">= 0"),
@@ -78,8 +77,9 @@ REFUSALS = [
 ]
 SCALE_OUT = [
     ("embedder:\n  batch_size: 8\n  data_parallel: 8\n", "feats",
-     "embedder.data_parallel 8"),
-    ("embedder:\n  data_parallel: 2\n", "maps", "embedder.data_parallel 2"),
+     "embedder.data_parallel: requested 8 devices but only"),
+    ("embedder:\n  data_parallel: 2\n", "maps",
+     "embedder.data_parallel: requested 2 devices but only"),
     ("train:\n  inst_shard: 4\n", "train",
      "train.inst_shard: requested 4 devices but only"),
     ("train:\n  data_parallel: 2\n", "tile,train",
@@ -102,8 +102,6 @@ def test_refusals_before_any_stage(tmp_path, monkeypatch, capsys, body,
     assert msg in err
     assert not os.path.exists("runs")
     if (body, stages, msg) in SCALE_OUT:
-        if msg.startswith("embedder"):
-            assert "scale-out slice (ROADMAP Queue 1 item 4b)" in err
         return
     with pytest.raises(SystemExit):
         jpipeline.main(["--config", name, "--stages", stages, "--device",

@@ -515,7 +515,7 @@ def test_serve_module_runs_and_drains_on_sigterm(tmp_path):
 
 def test_cli_flags_match_jax():
     """The JAX server's flag surface and defaults, with cuda in place of
-    auto; --data_parallel N > 0 raises, as in the other ported CLIs."""
+    auto; --data_parallel's refusals come before any weights are read."""
     from test_torch_testing_cli import _flags
     from tpumil.cli import serve as jax_serve
     from tpumil_torch.cli import serve
@@ -525,6 +525,8 @@ def test_cli_flags_match_jax():
     assert (port.pop("device"), jax_flags.pop("device")) == ("cuda", "auto")
     assert port == jax_flags
     assert serve.parse_args(["--embedder_weights", "w"]).data_parallel == 0
-    with pytest.raises(NotImplementedError, match="scale-out slice"):
-        serve.main(["--embedder_weights", "w", "--device", "cpu",
-                    "--data_parallel", "2"])
+    for n, msg in (("-1", "must be >= 0, got -1"),
+                   ("3", "batch_size 128 must divide by")):
+        with pytest.raises(ValueError, match=msg):
+            serve.main(["--embedder_weights", "w", "--device", "cpu",
+                        "--data_parallel", n])

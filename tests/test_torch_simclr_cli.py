@@ -101,11 +101,15 @@ def test_cli_flags_match_jax():
 
 
 def test_cli_refusals(tmp_path, monkeypatch):
-    """--data_parallel raises; no --device is the card, which raises
-    without one before any file is read."""
+    """--data_parallel's refusals (JAX's take_devices and trainer
+    messages); no --device is the card, which raises without one; all
+    before any file is written."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="scale-out slice"):
-        simclr_train.main(["--device", "cpu", "--data_parallel", "2"])
+    with pytest.raises(ValueError, match="non-negative, got -1"):
+        simclr_train.main(["--device", "cpu", "--data_parallel", "-1"])
+    with pytest.raises(ValueError, match="batch_size 512 must be divisible "
+                                         "by the data-parallel mesh size 3"):
+        simclr_train.main(["--device", "cpu", "--data_parallel", "3"])
     assert simclr_train.parse_args([]).device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

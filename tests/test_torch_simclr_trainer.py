@@ -287,8 +287,31 @@ def test_fine_tune_from_resolves_a_run_name(tmp_path, monkeypatch):
 
 
 def test_device_default_and_mesh_refusal():
-    with pytest.raises(NotImplementedError, match="scale-out slice"):
-        SimCLRTrainer(CFG32, SimCLRTrainConfig(), mesh=object(), device=CPU)
+    """A data-parallel mesh of one rank: the Adam step is bitwise the
+    single-device step (its rank's rows are the whole batch); JAX's
+    refusals; no device is the card."""
+    from tpumil_torch.parallel import mesh
+
+    images = torch.from_numpy(_images(2, 64, seed=2))
+    u = draw_uniforms(torch.Generator().manual_seed(2), 2)
+    cfg = SimCLRTrainConfig(batch_size=2, input_size=64, lr=1e-3)
+    runs = []
+    with mesh.data_parallel(1, "pretraining", "cpu") as m:
+        for on in (None, m):
+            tr = SimCLRTrainer(CFG32, cfg, mesh=on, device=CPU)
+            model, opt = tr.init(0)
+            runs.append((tr.train_step(model, opt, u, images, 1e-3),
+                         model.state_dict()))
+        with pytest.raises(ValueError, match="requested 2 devices but only "
+                                             "1 are available"):
+            mesh.data_parallel_mesh(2, device_type="cpu")
+    (loss, params), (loss1, params1) = runs
+    assert torch.equal(loss, loss1)
+    assert all(torch.equal(v, params1[k]) for k, v in params.items())
+    with pytest.raises(ValueError, match="must divide batch_size 4"):
+        SimCLRTrainer(CFG32, SimCLRTrainConfig(batch_size=4,
+                                               grad_cache_microbatch=3),
+                      device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SimCLRTrainer(CFG32, SimCLRTrainConfig())

@@ -277,7 +277,7 @@ def test_slide_feats_cli_matches_jax_cli(tmp_path, monkeypatch, weights,
 
 def test_cli_flags_device_and_unported_modes(monkeypatch):
     """The JAX CLI's flags and defaults, but for the device: the card,
-    which raises without one; --data_parallel raises."""
+    which raises without one; --data_parallel's refusals."""
     import argparse
 
     grabbed = {}
@@ -302,8 +302,10 @@ def test_cli_flags_device_and_unported_modes(monkeypatch):
     assert port == theirs
     argv = ["--dataset", "demo"]
     assert cli.build_parser().parse_args(argv).device == "cuda"
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        cli.main(argv + ["--data_parallel", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="must be >= 0, got -1"):
+        cli.main(argv + ["--data_parallel", "-1", "--device", "cpu"])
+    with pytest.raises(ValueError, match="batch_size 128 must divide by"):
+        cli.main(argv + ["--data_parallel", "3", "--device", "cpu"])
     if not torch.cuda.is_available():
         for extra in ([], ["--device", "cuda"]):
             with pytest.raises(RuntimeError, match="no CUDA device"):

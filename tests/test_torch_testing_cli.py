@@ -187,12 +187,15 @@ def test_cli_flags_match_jax(name):
 
 @pytest.mark.parametrize("name", sorted(CLIS))
 def test_cli_refusals(name, tmp_path, monkeypatch):
-    """--data_parallel raises; no --device is the card, which raises
-    without one before any file is read."""
+    """--data_parallel's refusals (JAX's messages); no --device is the
+    card, which raises without one before any file is read."""
     port_mod, _ = CLIS[name]
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="scale-out slice"):
-        port_mod.main(["--device", "cpu", "--data_parallel", "2"])
+    with pytest.raises(ValueError, match="must be >= 0, got -1"):
+        port_mod.main(["--device", "cpu", "--data_parallel", "-1"])
+    with pytest.raises(ValueError, match="batch_size 64 must divide by"):
+        port_mod.main(["--device", "cpu", "--data_parallel", "3"])
+    assert not os.listdir(tmp_path)
     assert port_mod.parse_args([]).device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -354,3 +354,191 @@ def mil_run(cfg_kw: dict, path: str, num_feats: int, inits: dict):
                              schemes.MILBenchConfig(**cfg_kw, device=CPU),
                              log=lines.append)
     return out, lines
+
+
+# -- the embedding half: data-parallel extraction, inference, serving and
+# SimCLR (tests/test_torch_scale_out_embed.py) -------------------------------
+
+EMBED_BATCH, EMBED_PATCH, BAG_BATCH = 8, 64, 4
+
+
+def embedder_of(inputs):
+    """The test's embedder: its backbone, the aggregator's instance head."""
+    from tpumil_torch.io import torch_ckpt
+    from tpumil_torch.models import embedder
+
+    agg, agg_cfg, model = torch_ckpt.load_mil_pth(inputs["aggregator"], CPU)
+    emb = embedder.Embedder(embedder.EmbedderConfig(
+        num_classes=agg_cfg.num_classes), CPU)
+    emb.feature_extractor.load_state_dict(inputs["backbone"], strict=True)
+    fc = agg.i_classifier.fc
+    fc = fc[0] if isinstance(fc, torch.nn.Sequential) else fc
+    emb.set_head(fc.weight.detach(), fc.bias.detach())
+    return emb, agg, model
+
+
+def _refusals(m, emb, agg, model):
+    """The messages of every refusal the world can show."""
+    from tpumil_torch.infer.features import FeatureExtractor
+    from tpumil_torch.infer.heatmap import BagInference
+    from tpumil_torch.infer.service import InferenceService
+    from tpumil_torch.models.simclr import SimCLRConfig
+    from tpumil_torch.parallel import mesh
+    from tpumil_torch.train.simclr_trainer import (SimCLRTrainConfig,
+                                                   SimCLRTrainer)
+
+    calls = {
+        "negative": lambda: mesh.data_parallel_mesh(-1, device_type="cpu"),
+        "too_many": lambda: mesh.data_parallel_mesh(4, device_type="cpu"),
+        "extractor": lambda: FeatureExtractor(emb, 7, mesh=m),
+        "bag_inference": lambda: BagInference(emb, agg, batch_size=7,
+                                              model=model, mesh=m),
+        "service": lambda: InferenceService(emb, CPU, batch_size=7,
+                                            patch_size=EMBED_PATCH, mesh=m),
+        "simclr_batch": lambda: SimCLRTrainer(
+            SimCLRConfig(), SimCLRTrainConfig(batch_size=7), mesh=m,
+            device=CPU),
+        "simclr_microbatch": lambda: SimCLRTrainer(
+            SimCLRConfig(), SimCLRTrainConfig(batch_size=6,
+                                              grad_cache_microbatch=3),
+            mesh=m, device=CPU),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def _simclr_steps(m, inputs):
+    """One monolithic and one grad-cache (microbatch 4) SGD step at batch 8
+    from the same weights and uniforms, each rank on its rows: (loss, the
+    gradient before the step, the largest parameter gap to rank 0 after
+    it) of each."""
+    import torch.distributed as dist
+
+    from tpumil_torch.models import simclr
+    from tpumil_torch.models.simclr import SimCLRConfig
+    from tpumil_torch.train.simclr_trainer import (SimCLRTrainConfig,
+                                                   SimCLRTrainer)
+
+    cfg32 = SimCLRConfig(compute_dtype=torch.float32)
+    u, images = inputs["uniforms"], torch.from_numpy(inputs["views"])
+    b = images.shape[0] // dist.get_world_size()
+    rows = slice(dist.get_rank() * b, (dist.get_rank() + 1) * b)
+    out = {}
+    for mb in (None, 4):
+        tr = SimCLRTrainer(cfg32, SimCLRTrainConfig(
+            batch_size=images.shape[0], input_size=EMBED_PATCH, lr=1e-3,
+            grad_cache_microbatch=mb), mesh=m, device=CPU)
+        model = simclr.SimCLR(cfg32, CPU)
+        model.load_state_dict(inputs["simclr"])
+        opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+        loss = tr.train_step(model, opt, u[:, rows], images[rows], 1e-3)
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        ref = flat.clone()
+        dist.broadcast(ref, src=0)
+        out[mb] = (float(loss), {k: p.grad.clone() for k, p in
+                                 model.named_parameters()}
+                   if dist.get_rank() == 0 else None,
+                   float((flat - ref).abs().max()))
+    return out
+
+
+def _simclr_fits(m, inputs, tmp):
+    """SimCLR ``fit`` over the whole world: (1) the JAX package's skipped
+    validation case (a valid split of 1 < the mesh's 2) still saves its
+    resume state, and the same config resumes from it; (2) the resume
+    config's run, its state after the first step kept aside; rank 0's logs
+    of each run and the final parameters of (2)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from tpumil_torch.io import native_ckpt
+    from tpumil_torch.models.simclr import SimCLRConfig
+    from tpumil_torch.train.simclr_trainer import (SimCLRTrainConfig,
+                                                   SimCLRTrainer)
+    from tpumil_torch.utils import prof
+
+    prof._summary_writer = lambda logdir: None  # scalars.jsonl alone
+    cfg32 = SimCLRConfig(compute_dtype=torch.float32)
+    paths = inputs["fit_paths"]
+    logs = []
+
+    def fit(cfg, run, resume=False):
+        lines = []
+        out = SimCLRTrainer(cfg32, cfg, mesh=m, device=CPU).fit(
+            paths, os.path.join(tmp, run), log=lines.append, resume=resume)
+        logs.append(lines)
+        return out
+
+    cfg = SimCLRTrainConfig(batch_size=4, epochs=1, input_size=48,
+                            num_workers=2, log_every_n_steps=100)
+    fit(cfg, "skip")
+    state = os.path.isdir(os.path.join(tmp, "skip", "state"))
+    fit(cfg, "skip", resume=True)
+
+    save, saves = native_ckpt.save_sharded_train_state, [0]
+
+    def keep_first(path, st, *, meta=None):
+        save(path, st, meta=meta)
+        saves[0] += 1
+        if saves[0] == 1 and dist.get_rank() == 0:
+            shutil.copytree(path, os.path.join(tmp, "snapshot"))
+
+    native_ckpt.save_sharded_train_state = keep_first
+    try:
+        out = fit(inputs["resume_cfg"], "straight")
+    finally:
+        native_ckpt.save_sharded_train_state = save
+    return logs, state, params_of(out["model"])
+
+
+def embed_world(inputs_path: str, tmp: str):
+    """Everything the data-parallel embedding tests read, from one world:
+    the refusals, FeatureExtractor.embed_paths / embed_arrays,
+    BagInference.run_bag, InferenceService rows (one request, then the
+    same rows packed as two), the SimCLR steps and fits. Rank 0 returns the
+    results; the followers' SimCLR gaps to rank 0 come back too."""
+    from tpumil_torch.infer.features import FeatureExtractor
+    from tpumil_torch.infer.heatmap import BagInference
+    from tpumil_torch.infer.service import InferenceService
+    from tpumil_torch.parallel import mesh
+
+    inputs = torch.load(inputs_path, weights_only=False)
+    m = mesh.data_parallel_mesh(mesh.world_size(), device_type="cpu")
+    emb, agg, model = embedder_of(inputs)
+    out = {"refusals": _refusals(m, emb, agg, model)}
+    ex = FeatureExtractor(emb, EMBED_BATCH, EMBED_PATCH, 2, mesh=m)
+    bags = BagInference(emb, agg, batch_size=BAG_BATCH,
+                        patch_size=EMBED_PATCH, num_workers=2, model=model,
+                        mesh=m)
+    mesh.feed_collective.calls = 0
+    out["embedded"] = mesh.lead(m, lambda: {
+        "paths": ex.embed_paths(inputs["paths"]),
+        "arrays": ex.embed_arrays(inputs["arrays"]),
+        "bag": bags.run_bag(inputs["bag"])})
+    out["feed_calls"] = mesh.feed_collective.calls
+    svc = InferenceService(emb, CPU, batch_size=EMBED_BATCH,
+                           patch_size=EMBED_PATCH, max_wait_ms=5.0, mesh=m)
+    if mesh.is_main():
+        images = inputs["images"]
+        try:
+            whole = svc.embed(images)
+            parts = [svc._batcher.submit(images[:5]),
+                     svc._batcher.submit(images[5:])]
+            out["served"] = (whole, np.concatenate(
+                [p.result(120)[:, :whole.shape[1]] for p in parts]))
+        finally:
+            svc.close()
+    else:
+        mesh.follow()
+    out["steps"] = _simclr_steps(m, inputs)
+    out["fits"] = _simclr_fits(m, inputs, tmp)
+    if not mesh.is_main():  # the followers' gaps alone: no copies of weights
+        return {"gaps": [v[2] for v in out["steps"].values()]}
+    return out

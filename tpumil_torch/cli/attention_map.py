@@ -9,6 +9,10 @@ the three inference scripts share.
 Each bag folder holds ``<a>_<b>.jpg`` patches; each bag gets
 ``<map_path>/<bag>.png`` and, with ``--export_scores 1``,
 ``<score_path>/<bag>.csv`` of per-patch attention scores.
+
+``--data_parallel N`` (here and in testing_tcga, testing_c16, serve):
+each patch batch's rows are split over N devices, one process each
+(``run_data_parallel``); rank 0 reads, aggregates, prints and writes.
 """
 
 from __future__ import annotations
@@ -49,8 +53,11 @@ def load_milnet(embedder_weights: str, aggregator_weights: str,
                              num_classes=agg_cfg.num_classes,
                              precision=precision, space_to_depth=space_to_depth)
     if embedder_weights == "ImageNet":
-        print("ImageNet embedder requested; supply a local .pth for real "
-              "features. Using a seeded random init.")
+        from tpumil_torch.parallel.mesh import is_main
+
+        if is_main():
+            print("ImageNet embedder requested; supply a local .pth for real "
+                  "features. Using a seeded random init.")
         emb = embedder.init_params(0, emb_cfg, device)
     else:
         emb = embedder.load_simclr_checkpoint(embedder_weights, emb_cfg, device)
@@ -62,16 +69,24 @@ def load_milnet(embedder_weights: str, aggregator_weights: str,
 
 
 DATA_PARALLEL_HELP = (
-    "Shard each patch batch over the first N devices (not ported yet: "
-    "raises) [0 = off]")
+    "Shard each patch batch over N devices, one process each (started "
+    "here, or by torchrun); batch_size must divide by N; the per-bag "
+    "aggregator runs on rank 0 [0 = off]")
 
 
-def refuse_data_parallel(n: int) -> None:
-    if n:
-        raise NotImplementedError(
-            "--data_parallel belongs to the embedding half of the scale-out "
-            "slice (ROADMAP Queue 1 item 4b), not ported yet; run on one "
-            "device")
+def run_data_parallel(main, argv, args, what: str, body) -> int:
+    """``--data_parallel N`` around a CLI's ``body(mesh)``: N's refusals
+    (negative, not dividing ``args.batch_size``) first; N > 1 without a
+    process group starts N workers, each running ``main(argv)``; on each
+    rank ``body`` runs with the mesh (None for N = 0), and rank 0's work
+    inside it goes through ``parallel/mesh.lead``."""
+    from tpumil_torch.parallel import mesh
+
+    mesh.check_data_parallel(args.data_parallel, args.batch_size)
+    if mesh.start_workers(main, argv, args.data_parallel, args.device):
+        return 0
+    with mesh.data_parallel(args.data_parallel, what, args.device) as m:
+        return body(m)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -112,31 +127,40 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    refuse_data_parallel(args.data_parallel)
-
-    from tpumil_torch.infer.heatmap import BagInference, run_attention_maps
-    from tpumil_torch.utils.device import select_device
-
-    device = select_device(args.device)
     if args.class_name is None:
         args.class_name = [f"class {c}" for c in range(args.num_classes)]
     if len(args.thres) != args.num_classes:
         raise ValueError("Number of thresholds does not match classes.")
+    return run_data_parallel(main, argv, args, "embedding",
+                             lambda m: _run(args, m))
+
+
+def _run(args, mesh) -> int:
+    from tpumil_torch.infer.heatmap import BagInference, run_attention_maps
+    from tpumil_torch.parallel.mesh import lead
+    from tpumil_torch.utils.device import select_device
 
     emb, _, agg, model_name = load_milnet(
         args.embedder_weights, args.aggregator_weights, args.num_classes,
-        device, backbone=args.backbone, precision=args.precision,
-        space_to_depth=args.space_to_depth)
+        select_device(args.device), backbone=args.backbone,
+        precision=args.precision, space_to_depth=args.space_to_depth)
     infer = BagInference(emb, agg, batch_size=args.batch_size,
-                         num_workers=args.num_workers, model=model_name)
-    bags_list = sorted(glob.glob(os.path.join(args.bag_path, "*")))
-    if args.export_scores:
-        os.makedirs(args.score_path, exist_ok=True)
-    run_attention_maps(infer, bags_list, args.thres, args.class_name,
-                       args.map_path, patch_ext=args.patch_ext,
-                       score_path=args.score_path if args.export_scores else None,
-                       average=args.average, seed=args.seed)
+                         num_workers=args.num_workers, model=model_name,
+                         mesh=mesh)
+
+    def work():
+        bags_list = sorted(glob.glob(os.path.join(args.bag_path, "*")))
+        if args.export_scores:
+            os.makedirs(args.score_path, exist_ok=True)
+        run_attention_maps(
+            infer, bags_list, args.thres, args.class_name, args.map_path,
+            patch_ext=args.patch_ext,
+            score_path=args.score_path if args.export_scores else None,
+            average=args.average, seed=args.seed)
+
+    lead(mesh, work)
     return 0
 
 

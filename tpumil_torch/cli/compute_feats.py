@@ -10,6 +10,10 @@ writes ``<out_root>/<dataset>/<class>/<bag>.csv``, the per-class bag lists
 and the master ``<out_root>/<dataset>/<dataset>.csv`` that
 ``tpumil_torch.cli.train_wsi`` trains on, and the embedder it used under
 ``embedder/<dataset>/``.
+
+``--data_parallel N`` splits each patch batch's rows over N devices, one
+process each (started here, or by ``torchrun``); rank 0 decodes, prints
+and writes, the other ranks follow its batches.
 """
 
 from __future__ import annotations
@@ -68,8 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "stem. Moot for instance norm at 224^2, whose "
                              "stem is the fused kernel")
     parser.add_argument("--data_parallel", default=0, type=int, metavar="N",
-                        help="Shard each patch batch over N devices (not "
-                             "ported yet: raises) [0 = off]")
+                        help="Shard each patch batch over N devices, one "
+                             "process each; batch_size must divide by N "
+                             "[0 = off]")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda without a card raises")
     return parser
@@ -86,25 +91,30 @@ def config_from_args(args):
 
 
 def main(argv=None):
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel belongs to the embedding half of the scale-out "
-            "slice (ROADMAP Queue 1 item 4b), not ported yet; extract on "
-            "one device")
+    from tpumil_torch.cli.attention_map import run_data_parallel
 
+    parser = build_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parser.parse_args(argv)
+    return run_data_parallel(main, argv, args, "extraction",
+                             lambda m: _run(parser, args, m))
+
+
+def _run(parser, args, mesh) -> int:
     from tpumil_torch.data.feature_store import build_dataset_csvs
     from tpumil_torch.data.patches import list_bag_dirs
     from tpumil_torch.infer.features import (FeatureExtractor, compute_feats,
                                              compute_tree_feats)
     from tpumil_torch.io import torch_ckpt
     from tpumil_torch.models import embedder
+    from tpumil_torch.parallel.mesh import is_main, lead
     from tpumil_torch.utils.device import select_device
     from tpumil_torch.utils.sharding import parse_shard
 
     device = select_device(args.device)
     cfg = config_from_args(args)
+    # rank 0 alone prints and writes
+    say = print if is_main() else (lambda *a: None)
 
     def resolve_weights(spec):
         if spec is None:
@@ -121,55 +131,65 @@ def main(argv=None):
             if args.norm_layer != "batch":
                 raise ValueError("Please use batch normalization for ImageNet feature")
             # no download here: ImageNet weights come as a local .pth
-            print("ImageNet weights requested; supply a local .pth via --weights "
-                  "<path> for real features. Using random init.")
+            say("ImageNet weights requested; supply a local .pth via --weights "
+                "<path> for real features. Using random init.")
             return embedder.init_params(0, cfg, device)
         model = embedder.load_simclr_checkpoint(resolve_weights(spec), cfg,
                                                 device)
-        os.makedirs(os.path.join("embedder", args.dataset), exist_ok=True)
-        torch_ckpt.save_state_dict(
-            embedder.export_embedder_state_dict(model),
-            os.path.join("embedder", args.dataset, export_name))
-        print("Use pretrained features.")
+        if is_main():
+            os.makedirs(os.path.join("embedder", args.dataset), exist_ok=True)
+            torch_ckpt.save_state_dict(
+                embedder.export_embedder_state_dict(model),
+                os.path.join("embedder", args.dataset, export_name))
+        say("Use pretrained features.")
         return model
 
     def extractor(model):
         return FeatureExtractor(model, args.batch_size, args.patch_size,
-                                args.num_workers)
+                                args.num_workers, mesh=mesh)
 
     feats_path = os.path.join(args.out_root, args.dataset)
-    os.makedirs(feats_path, exist_ok=True)
+    if is_main():
+        os.makedirs(feats_path, exist_ok=True)
     if args.assemble_only:
-        master = build_dataset_csvs(feats_path, args.dataset)
-        print(f"master CSV: {master}")
+        if is_main():
+            master = build_dataset_csvs(feats_path, args.dataset)
+            print(f"master CSV: {master}")
         return 0
     bag_dirs = list_bag_dirs(args.wsi_root, args.dataset, args.magnification)
     shard = parse_shard(args.shard)
     if shard is not None:
         i, n = shard
         bag_dirs = bag_dirs[i::n]
-        print(f"shard {i}/{n}: {len(bag_dirs)} bags")
-    log = lambda s: (sys.stdout.write(s), sys.stdout.flush())
+        say(f"shard {i}/{n}: {len(bag_dirs)} bags")
 
     if args.magnification == "tree":
         if args.weights_high is None or args.weights_low is None:
             parser.error("--magnification tree requires --weights_high and --weights_low")
-        ex_h = extractor(load(args.weights_high, "embedder-high.pth"))
-        ex_l = extractor(load(args.weights_low, "embedder-low.pth"))
-        compute_tree_feats(bag_dirs, ex_l, ex_h, feats_path, args.tree_fusion, log)
-        stats = ex_h.stats
+        extractors = (extractor(load(args.weights_high, "embedder-high.pth")),
+                      extractor(load(args.weights_low, "embedder-low.pth")))
     else:
-        ex = extractor(load(args.weights, "embedder.pth"))
-        compute_feats(bag_dirs, ex, feats_path, args.magnification, log)
-        stats = ex.stats
+        extractors = (extractor(load(args.weights, "embedder.pth")),)
 
-    if shard is None:
-        build_dataset_csvs(feats_path, args.dataset)
-    else:
-        print("shard done; run --assemble_only after all shards finish "
-              "to build the dataset CSVs")
-    print(f"Throughput: {stats.patches_per_sec:.1f} patches/sec "
-          f"({stats.patches} patches)")
+    def work():
+        log = lambda s: (sys.stdout.write(s), sys.stdout.flush())
+        if args.magnification == "tree":
+            ex_h, ex_l = extractors
+            compute_tree_feats(bag_dirs, ex_l, ex_h, feats_path,
+                               args.tree_fusion, log)
+        else:
+            compute_feats(bag_dirs, extractors[0], feats_path,
+                          args.magnification, log)
+        stats = extractors[0].stats
+        if shard is None:
+            build_dataset_csvs(feats_path, args.dataset)
+        else:
+            print("shard done; run --assemble_only after all shards finish "
+                  "to build the dataset CSVs")
+        print(f"Throughput: {stats.patches_per_sec:.1f} patches/sec "
+              f"({stats.patches} patches)")
+
+    lead(mesh, work)
     return 0
 
 

@@ -12,9 +12,11 @@ card) reaches every stage. ``train.inst_shard`` / ``train.data_parallel``
 N > 1 run the train stage on N devices, one process each, as the train_wsi
 CLI does: in N local workers that this command starts after building the
 bag cache, or, under ``torchrun``, on the launcher's ranks (then the train
-stage is the only one). ``embedder.data_parallel`` belongs to the embedding
-half of scale-out and is refused above 0. Every check, the device probe
-included, runs before the first stage.
+stage is the only one). ``embedder.data_parallel`` N > 0 splits the feats
+and maps stages' patch batches over N devices: the feats stage passes
+``--data_parallel N`` to compute_feats, and the maps stage runs
+``BagInference(mesh=...)``, in N local workers for N > 1. Every check, the
+device probe included, runs before the first stage.
 """
 
 from __future__ import annotations
@@ -26,10 +28,6 @@ import os
 import sys
 
 STAGES = ("tile", "simclr", "feats", "train", "maps")
-
-EMBEDDING_HALF = ("the embedding half of the scale-out slice (ROADMAP Queue "
-                  "1 item 4b), not ported yet; set it to 0 to run on one "
-                  "device")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,9 +45,8 @@ def validate(parser: argparse.ArgumentParser, cfg, stages,
              device: str) -> None:
     """Every check that can fail a later stage, before the first one runs
     (the train and maps stages run after hours of tiling and pretraining):
-    the JAX pipeline's checks and messages, the refusal of
-    ``embedder.data_parallel`` above 0, and the probe of the devices that
-    the train stage asks for."""
+    the JAX pipeline's checks and messages, and the probe of the devices
+    that the embedding and train stages ask for."""
     for s in stages:
         if s not in STAGES:
             parser.error(f"unknown stage {s!r}; valid: {STAGES}")
@@ -83,8 +80,6 @@ def validate(parser: argparse.ArgumentParser, cfg, stages,
     from tpumil_torch.parallel.mesh import take_devices
 
     for name, val in device_asks:
-        if name == "embedder.data_parallel":
-            parser.error(f"{name} {val}: {EMBEDDING_HALF}")
         try:
             take_devices(val, device)
         except ValueError as exc:
@@ -109,6 +104,46 @@ def _embedder_weights(cfg, run_dir: str, simclr_ckpt):
         raise SystemExit("no embedder weights; run the simclr stage or set "
                          "embedder.weights")
     return weights
+
+
+def maps_stage(cfg, run_dir: str, device: str, embedder_weights: str,
+               aggregator_weights: str) -> None:
+    """Attention maps of every bag into ``<run_dir>/maps`` (and
+    ``<run_dir>/scores``), the patch batches split over
+    ``embedder.data_parallel`` ranks when it is set (this process is one
+    of them; rank 0 writes)."""
+    from tpumil_torch.cli.attention_map import load_milnet
+    from tpumil_torch.infer.heatmap import BagInference, run_attention_maps
+    from tpumil_torch.parallel import mesh
+    from tpumil_torch.utils.device import select_device
+
+    with mesh.data_parallel(cfg.embedder.data_parallel, "embedding",
+                            device) as m:
+        embedder, _, aggregator, model_name = load_milnet(
+            embedder_weights, aggregator_weights, cfg.train.num_classes,
+            select_device(device), cfg.embedder.norm_layer,
+            backbone=cfg.embedder.backbone, precision=cfg.embedder.precision,
+            # the SAME stem the feats stage embedded (and the aggregator
+            # trained on)
+            space_to_depth=cfg.embedder.space_to_depth)
+        infer = BagInference(embedder, aggregator,
+                             batch_size=cfg.inference.batch_size,
+                             patch_size=cfg.embedder.patch_size,
+                             num_workers=cfg.inference.num_workers,
+                             model=model_name, mesh=m)
+        layout = "pyramid" if len(cfg.magnifications) > 1 else "single"
+        bags_list = sorted(glob.glob(os.path.join(cfg.wsi_root, cfg.dataset,
+                                                  layout, "*", "*")))
+        thres = cfg.inference.thresholds or [0.5] * cfg.train.num_classes
+        names = cfg.inference.class_names or [
+            f"class {c}" for c in range(cfg.train.num_classes)]
+        mesh.lead(m, lambda: run_attention_maps(
+            infer, bags_list, thres, names, os.path.join(run_dir, "maps"),
+            # tiles were written by the tiler stage in cfg.tiler.format
+            patch_ext=cfg.inference.patch_ext or cfg.tiler.format,
+            score_path=os.path.join(run_dir, "scores")
+            if cfg.inference.export_scores else None,
+            average=cfg.inference.average, seed=cfg.train.seed))
 
 
 def train_stage(train_cfg, run_dir: str, device: str) -> None:
@@ -196,6 +231,8 @@ def main(argv=None):
                    cfg.embedder.tree_fusion, "--device", args.device]
         if not cfg.embedder.space_to_depth:
             cf_args += ["--no-space_to_depth"]
+        if cfg.embedder.data_parallel:
+            cf_args += ["--data_parallel", str(cfg.embedder.data_parallel)]
         if cfg.embedder.weights_high:
             cf_args += ["--weights_high", cfg.embedder.weights_high]
         if cfg.embedder.weights_low:
@@ -227,38 +264,20 @@ def main(argv=None):
 
     if "maps" in stages:
         print("== stage: maps")
-        from tpumil_torch.cli.attention_map import load_milnet
-        from tpumil_torch.infer.heatmap import BagInference, run_attention_maps
-
         agg = sorted(glob.glob(os.path.join(run_dir, "weights", "fold_*.pth")))
         if not agg:
             raise SystemExit("no trained aggregator; run the train stage first")
-        emb = _embedder_weights(cfg, run_dir, simclr_ckpt)
-        embedder, _, aggregator, model_name = load_milnet(
-            emb, agg[0], cfg.train.num_classes, device,
-            cfg.embedder.norm_layer, backbone=cfg.embedder.backbone,
-            precision=cfg.embedder.precision,
-            # the SAME stem the feats stage embedded (and the aggregator
-            # trained on)
-            space_to_depth=cfg.embedder.space_to_depth)
-        infer = BagInference(embedder, aggregator,
-                             batch_size=cfg.inference.batch_size,
-                             patch_size=cfg.embedder.patch_size,
-                             num_workers=cfg.inference.num_workers,
-                             model=model_name)
-        layout = "pyramid" if len(cfg.magnifications) > 1 else "single"
-        bags_list = sorted(glob.glob(os.path.join(cfg.wsi_root, cfg.dataset,
-                                                  layout, "*", "*")))
-        thres = cfg.inference.thresholds or [0.5] * cfg.train.num_classes
-        names = cfg.inference.class_names or [f"class {c}"
-                                              for c in range(cfg.train.num_classes)]
-        run_attention_maps(
-            infer, bags_list, thres, names, os.path.join(run_dir, "maps"),
-            # tiles were written by the tiler stage in cfg.tiler.format
-            patch_ext=cfg.inference.patch_ext or cfg.tiler.format,
-            score_path=os.path.join(run_dir, "scores")
-            if cfg.inference.export_scores else None,
-            average=cfg.inference.average, seed=cfg.train.seed)
+        maps_args = (cfg, run_dir, args.device,
+                     _embedder_weights(cfg, run_dir, simclr_ckpt), agg[0])
+        if mesh.needs_workers(cfg.embedder.data_parallel):
+            if device.type == "cuda":
+                import torch
+
+                torch.cuda.empty_cache()  # worker 0 embeds on this card
+            mesh.launch(maps_stage, cfg.embedder.data_parallel, maps_args,
+                        args.device)
+        else:
+            maps_stage(*maps_args)
     print("pipeline done.")
     return 0
 

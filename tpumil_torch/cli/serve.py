@@ -22,6 +22,10 @@ memoryview chunks. ``?attention=1`` includes the [N, C] attention matrix.
     python -m tpumil_torch.cli.serve --device cuda \\
         --embedder_weights <run>/model.pth \\
         --aggregator_weights weights/<date>/fold_0.pth --port 8008
+
+``--data_parallel N`` splits each embed batch's rows over N devices, one
+process each: rank 0 runs the HTTP front and the micro-batcher, the other
+ranks follow its batches; SIGTERM to the command shuts them all down.
 """
 
 from __future__ import annotations
@@ -30,12 +34,13 @@ import argparse
 import io
 import json
 import sys
+import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
 from tpumil_torch.cli.attention_map import (DATA_PARALLEL_HELP,
-                                           refuse_data_parallel)
+                                            run_data_parallel)
 
 MAX_BODY_BYTES = 1 << 30
 
@@ -195,7 +200,7 @@ def make_server(service, host: str = "127.0.0.1", port: int = 0):
     return ThreadingHTTPServer((host, port), make_handler(service))
 
 
-def build_service(args):
+def build_service(args, mesh=None):
     from tpumil_torch.infer.service import InferenceService
     from tpumil_torch.models import embedder
     from tpumil_torch.models.embedder import EmbedderConfig
@@ -221,7 +226,7 @@ def build_service(args):
         emb, device, aggregator=agg, model=model_name or "dsmil",
         batch_size=args.batch_size, patch_size=args.patch_size,
         max_wait_ms=args.max_wait_ms, thresholds=args.thres,
-        average=args.average)
+        average=args.average, mesh=mesh)
 
 
 def parse_args(argv=None):
@@ -260,10 +265,31 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def _graceful(signum, frame):  # SIGTERM from an orchestrator
+    raise KeyboardInterrupt
+
+
 def main(argv=None):
+    import signal
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    refuse_data_parallel(args.data_parallel)
-    service = build_service(args)
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, _graceful)
+    try:
+        return run_data_parallel(main, argv, args, "embedding",
+                                 lambda m: _serve(args, m))
+    except KeyboardInterrupt:  # the workers were told, and have stopped
+        return 0
+
+
+def _serve(args, mesh) -> int:
+    from tpumil_torch.parallel import mesh as pmesh
+
+    service = build_service(args, mesh)
+    if mesh is not None and not pmesh.is_main():
+        pmesh.follow()  # until rank 0's service closes
+        return 0
     server = make_server(service, args.host, args.port)
     host, port = server.server_address[:2]
     print(f"tpumil_torch serving on http://{host}:{port} "
@@ -271,13 +297,6 @@ def main(argv=None):
           f"{args.backbone}/{args.norm}, "
           f"{'embed+predict' if args.aggregator_weights else 'embed only'})",
           flush=True)
-
-    import signal
-
-    def _graceful(signum, frame):  # SIGTERM from an orchestrator
-        raise KeyboardInterrupt
-
-    signal.signal(signal.SIGTERM, _graceful)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -10,6 +10,11 @@ pyramid layout with ``--multiscale 1``); the manifest is written to
 ``runs/<dataset>-<level>/`` (``checkpoints/model.pth``, ``state/``,
 ``scalars.jsonl``). A reference-format YAML named by ``--config`` is read
 when it exists (PyYAML is imported only then); flags override it.
+
+``--data_parallel N`` trains on N devices, one process each (started here,
+or by ``torchrun``): each rank decodes and augments its rows of every
+batch, the projections are gathered for the full-batch loss and the
+gradients averaged; rank 0 writes the manifest, the run and the log.
 """
 
 from __future__ import annotations
@@ -103,12 +108,13 @@ def _read_config(path: str) -> dict:
 
 
 def main(argv=None):
-    args = parse_args(argv)
-    from tpumil_torch.cli.attention_map import refuse_data_parallel
-    from tpumil_torch.utils.device import select_device
+    from tpumil_torch.parallel import mesh
 
-    refuse_data_parallel(args.data_parallel)
-    device = select_device(args.device)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    if args.data_parallel < 0:
+        raise ValueError(f"device count must be non-negative, got "
+                         f"{args.data_parallel}")
 
     # config.yaml compatibility (simclr/run.py:28); parsed safely, no eval()
     cfg_yaml = _read_config(args.config)
@@ -118,7 +124,8 @@ def main(argv=None):
 
     from tpumil_torch.models.simclr import SimCLRConfig
     from tpumil_torch.train.simclr_trainer import (SimCLRTrainConfig,
-                                                   SimCLRTrainer)
+                                                   SimCLRTrainer, check_config)
+    from tpumil_torch.utils.device import select_device
 
     model_cfg = SimCLRConfig(
         base_model=args.base_model or model_y.get("base_model", "resnet18"),
@@ -141,22 +148,28 @@ def main(argv=None):
         grad_cache_microbatch=args.grad_cache or None,
         save_every_n_steps=args.save_every_n_steps or None,
     )
-
-    paths = generate_manifest(args.wsi_root, args.dataset, args.level,
-                              args.multiscale)
-    if not paths:
-        _parser().error(f"no patches found for dataset {args.dataset}")
-    # the manifest, for ecosystem parity (simclr/run.py:19-20)
-    write_manifest(paths)
-
-    run_dir = args.run_dir or os.path.join("runs",
-                                           f"{args.dataset}-{args.level}")
-    trainer = SimCLRTrainer(model_cfg, train_cfg, device=device)
-    out = trainer.fit(paths, run_dir,
-                      fine_tune_from=cfg_yaml.get("fine_tune_from") or None,
-                      resume=args.resume)
-    print(f"best valid loss: {out['best_valid_loss']:.4f}; "
-          f"checkpoint: {out['checkpoint']}")
+    check_config(train_cfg, args.data_parallel or 1)
+    if mesh.start_workers(main, argv, args.data_parallel, args.device):
+        return 0
+    with mesh.data_parallel(args.data_parallel, "pretraining",
+                            args.device) as m:
+        device = select_device(args.device)
+        paths = generate_manifest(args.wsi_root, args.dataset, args.level,
+                                  args.multiscale)
+        if not paths:
+            _parser().error(f"no patches found for dataset {args.dataset}")
+        if mesh.is_main():
+            # the manifest, for ecosystem parity (simclr/run.py:19-20)
+            write_manifest(paths)
+        run_dir = args.run_dir or os.path.join("runs",
+                                               f"{args.dataset}-{args.level}")
+        trainer = SimCLRTrainer(model_cfg, train_cfg, mesh=m, device=device)
+        out = trainer.fit(paths, run_dir,
+                          fine_tune_from=cfg_yaml.get("fine_tune_from") or None,
+                          resume=args.resume)
+        if mesh.is_main():
+            print(f"best valid loss: {out['best_valid_loss']:.4f}; "
+                  f"checkpoint: {out['checkpoint']}")
     return 0
 
 

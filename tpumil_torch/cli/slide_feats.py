@@ -9,6 +9,10 @@ Reads ``<wsi_root>/<dataset>/<class>/*.<slide_format>`` and writes
 ``<slide>.pos.csv`` sidecar (each kept tile's col,row) and the master
 ``<out_root>/<dataset>/<dataset>.csv`` that ``tpumil_torch.cli.train_wsi``
 trains on.
+
+``--data_parallel N`` splits each tile batch's rows over N devices, one
+process each (started here, or by ``torchrun``); rank 0 reads the slides
+and writes, the other ranks follow its batches.
 """
 
 from __future__ import annotations
@@ -45,8 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "stem. Moot for instance norm at 224^2, whose "
                              "stem is the fused kernel")
     parser.add_argument("--data_parallel", default=0, type=int, metavar="N",
-                        help="Shard each patch batch over N devices (not "
-                             "ported yet: raises) [0 = off]")
+                        help="Shard each patch batch over N devices, one "
+                             "process each; batch_size must divide by N "
+                             "[0 = off]")
     parser.add_argument("--precision", default="f32",
                         choices=["bf16", "f32", "f32h", "f32x"],
                         help="bf16: bf16 activations; f32 (default), f32h, "
@@ -62,13 +67,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel belongs to the embedding half of the scale-out "
-            "slice (ROADMAP Queue 1 item 4b), not ported yet; stream on one "
-            "device")
+    from tpumil_torch.cli.attention_map import run_data_parallel
 
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    return run_data_parallel(main, argv, args, "extraction",
+                             lambda m: _run(args, m))
+
+
+def _run(args, mesh) -> int:
     import glob
     import os
 
@@ -76,6 +83,7 @@ def main(argv=None):
     from tpumil_torch.infer.features import FeatureExtractor
     from tpumil_torch.infer.stream_embed import embed_dataset_streaming
     from tpumil_torch.models import embedder
+    from tpumil_torch.parallel.mesh import is_main, lead
     from tpumil_torch.utils.device import select_device
     from tpumil_torch.utils.sharding import parse_shard
 
@@ -93,22 +101,28 @@ def main(argv=None):
         cands = sorted(glob.glob("simclr/runs/*/checkpoints/*.pth"))
         path = cands[-1] if cands else None
     if path is None:
-        print("no SimCLR weights found; using random init")
+        if is_main():
+            print("no SimCLR weights found; using random init")
         model = embedder.init_params(0, cfg, device)
     else:
         model = embedder.load_simclr_checkpoint(path, cfg, device)
 
-    extractor = FeatureExtractor(model, args.batch_size, args.tile_size)
+    extractor = FeatureExtractor(model, args.batch_size, args.tile_size,
+                                 mesh=mesh)
     tiler_cfg = TilerConfig(tile_size=args.tile_size, base_mag=args.base_mag,
                             objective=args.objective,
                             background_threshold=args.background_t,
                             workers=args.workers)
-    master = embed_dataset_streaming(
-        args.wsi_root, args.dataset, extractor, args.out_root, tiler_cfg,
-        args.slide_format, tuple(args.magnifications),
-        batch_size=args.batch_size, shard=parse_shard(args.shard))
-    if master:
-        print(f"master CSV: {master}")
+
+    def work():
+        master = embed_dataset_streaming(
+            args.wsi_root, args.dataset, extractor, args.out_root, tiler_cfg,
+            args.slide_format, tuple(args.magnifications),
+            batch_size=args.batch_size, shard=parse_shard(args.shard))
+        if master:
+            print(f"master CSV: {master}")
+
+    lead(mesh, work)
     return 0
 
 

@@ -17,7 +17,7 @@ import sys
 import numpy as np
 
 from tpumil_torch.cli.attention_map import (DATA_PARALLEL_HELP, load_milnet,
-                                            refuse_data_parallel)
+                                            run_data_parallel)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -43,18 +43,29 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    refuse_data_parallel(args.data_parallel)
+    return run_data_parallel(main, argv, args, "embedding",
+                             lambda m: _run(args, m))
 
-    from tpumil_torch.infer.heatmap import (BagInference,
-                                            render_single_class_map, save_png)
+
+def _run(args, mesh) -> int:
+    from tpumil_torch.infer.heatmap import BagInference
+    from tpumil_torch.parallel.mesh import lead
     from tpumil_torch.utils.device import select_device
 
     emb, _, agg, model_name = load_milnet(
         args.embedder_weights, args.aggregator_weights, args.num_classes,
         select_device(args.device))
     infer = BagInference(emb, agg, batch_size=args.batch_size,
-                         num_workers=args.num_workers, model=model_name)
+                         num_workers=args.num_workers, model=model_name,
+                         mesh=mesh)
+    lead(mesh, lambda: _maps(args, infer))
+    return 0
+
+
+def _maps(args, infer) -> None:
+    from tpumil_torch.infer.heatmap import render_single_class_map, save_png
 
     red = np.asarray([1.0, 0.0, 0.0])  # unit RGB
     bags_list = sorted(glob.glob(os.path.join(args.bag_path, "*")))
@@ -70,7 +81,6 @@ def main(argv=None):
             positions, red if tumor else np.zeros(3))
         save_png(cmap, os.path.join(args.output,
                                     os.path.basename(bag_dir.rstrip(os.sep)) + ".png"))
-    return 0
 
 
 if __name__ == "__main__":

@@ -11,6 +11,10 @@ tpumil/infer/features.py).
     ``embed_arrays`` embeds an in-memory batch, ``infer/stream_embed.py``
     streams slides through ``launch`` and ``infer/heatmap.py`` bags
     through ``launch_with_logits``);
+  * ``mesh`` (``parallel/mesh.data_parallel_mesh``): each batch's rows are
+    split over every rank of the process group, rank 0 feeding
+    (``parallel/mesh.BatchShardedForward``); a batch whose length does not
+    divide by the rank count is padded with zero rows and sliced back;
   * tree (multi-magnification) mode batches all high-magnification patches
     of a bag together;
   * the per-bag CSVs keep the reference's ``%.4f`` format.
@@ -48,17 +52,23 @@ class FeatureExtractor:
     """An ``Embedder`` (on its device) over fixed-size patch batches, fed by
     a prefetching host pipeline.
 
-    ``mesh`` (the JAX package's multi-device batch sharding) is not ported:
-    passing one raises NotImplementedError.
+    ``mesh``: a data-parallel mesh over the process group; ``batch_size``
+    must divide by its rank count. Rank 0 calls the extractor as without
+    one; every other rank builds the same extractor and serves rank 0's
+    batches from ``parallel/mesh.follow`` (``mesh.lead`` runs both). Rows
+    are independent (instance norm normalizes per sample), so each rank's
+    rows give the unsharded features to float tolerance, and at world 1
+    bitwise.
     """
 
     def __init__(self, model: Embedder, batch_size: int = 128,
                  patch_size: int = 224, num_workers: int = 8, mesh=None):
+        self._sharded = None
         if mesh is not None:
-            raise NotImplementedError(
-                "FeatureExtractor(mesh=...) belongs to the embedding half of "
-                "the scale-out slice (ROADMAP Queue 1 item 4b), not ported "
-                "yet; extract on one device")
+            from tpumil_torch.parallel.mesh import BatchShardedForward
+
+            self._sharded = BatchShardedForward(mesh, batch_size, model,
+                                                model.device)
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -82,7 +92,16 @@ class FeatureExtractor:
         if pin:
             host = host.pin_memory()
         with torch.inference_mode():
-            feats, logits = self.model(host.to(self.device, non_blocking=pin))
+            x = host.to(self.device, non_blocking=pin)
+            if self._sharded is None:
+                feats, logits = self.model(x)
+            else:
+                n = x.shape[0]
+                pad = -n % self._sharded.n_shard
+                if pad:
+                    x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+                feats, logits = self._sharded(x)
+                feats, logits = feats[:n], logits[:n]
         return feats, logits, host
 
     def launch(self, batch: np.ndarray):
@@ -93,8 +112,8 @@ class FeatureExtractor:
 
     def embed_arrays(self, batch: np.ndarray) -> np.ndarray:
         """Features [n, K] of a uint8 or float [n, T, T, 3] batch, computed
-        on the extractor's device; uint8 crosses the bus as uint8 and is
-        divided by 255 there."""
+        on the extractor's device (or its mesh: any n, padded there); uint8
+        crosses the bus as uint8 and is divided by 255 there."""
         feats, _host = self.launch(batch)
         return feats.cpu().numpy()
 

@@ -72,24 +72,21 @@ class BagInference:
     """The port's ``Embedder`` (which fixes the device) and a registry
     aggregator of model ``model`` over raw patch folders.
 
-    ``mesh`` (the JAX package's batch sharding over devices) is not ported:
-    passing one raises NotImplementedError."""
+    ``mesh``: the patch batches' rows are split over every rank of a
+    data-parallel mesh, as ``FeatureExtractor(mesh=...)`` does (rank 0 runs
+    the bags, the others follow); ``batch_size`` must divide by its rank
+    count. The aggregator runs once per bag on rank 0, unpadded."""
 
     def __init__(self, embedder: Embedder, aggregator: nn.Module,
                  batch_size: int = 64, patch_size: Optional[int] = 224,
                  num_workers: int = 8, model: str = "dsmil", mesh=None):
         from tpumil_torch.models.registry import get_model
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "BagInference(mesh=...) belongs to the embedding half of the "
-                "scale-out slice (ROADMAP Queue 1 item 4b), not ported yet; "
-                "run on one device")
         if not isinstance(aggregator, get_model(model)):
             raise ValueError(f"aggregator is a {type(aggregator).__name__}, "
                              f"not a {model!r} model")
         self.extractor = FeatureExtractor(embedder, batch_size, patch_size,
-                                          num_workers)
+                                          num_workers, mesh=mesh)
         self.aggregator = aggregator
         self.model = model
         self.stats = HeatmapStats()

@@ -1,5 +1,5 @@
 """Inference serving: cross-request micro-batching onto one fixed batch
-shape (counterpart of tpumil/infer/service.py, single device).
+shape (counterpart of tpumil/infer/service.py).
 
     client A (3 patches)  \\
     client B (5 patches)   >  one [batch_size, P, P, 3] device forward
@@ -11,11 +11,18 @@ norm normalizes per sample, batch norm runs folded statistics), and the
 batch shape never changes, so a row's features do not depend on which
 requests it shared a batch with. Bags aggregate unpadded: the power-of-two
 buckets of the JAX package exist for XLA's static shapes.
+
+With a data-parallel ``mesh`` each batch's rows are split over every rank
+of the process group (``parallel/mesh.BatchShardedForward``): rank 0 serves,
+the other ranks follow. After the warm-up, only the batcher's worker thread
+runs the collectives: the batches, a keep-alive header while idle, and "stop"
+when the service closes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import queue
 import threading
 import time
@@ -101,13 +108,17 @@ class MicroBatcher:
     ``[batch_size, width]`` array. A partial batch is flushed ``max_wait_ms``
     after its first row arrived; pad rows are zeros and their outputs are
     dropped. ``fwd`` runs on the worker thread under ``torch.inference_mode``
-    (grad mode is thread-local, so the worker enters it itself).
+    (grad mode is thread-local, so the worker enters it itself), and so do
+    ``idle()``, called while no request waits, and ``finish()``, called
+    once as the worker exits.
     """
 
     def __init__(self, fwd, batch_size: int, patch_size: int,
                  out_width: int, max_wait_ms: float = 8.0,
-                 queue_limit: int = 256):
+                 queue_limit: int = 256, idle=None, finish=None):
         self._fwd = fwd
+        self._idle = idle
+        self._finish = finish
         self.batch_size = int(batch_size)
         self.patch_size = int(patch_size)
         self.out_width = int(out_width)
@@ -162,7 +173,11 @@ class MicroBatcher:
 
     def _run(self) -> None:
         with torch.inference_mode():
-            self._loop()
+            try:
+                self._loop()
+            finally:
+                if self._finish is not None:
+                    self._finish()
 
     def _loop(self) -> None:
         B, P = self.batch_size, self.patch_size
@@ -189,6 +204,8 @@ class MicroBatcher:
                             break
                         if self._stop.is_set():
                             break
+                        if not rows and self._idle is not None:
+                            self._idle()
                         continue
                 if deadline is None:
                     deadline = time.monotonic() + self.max_wait_s
@@ -223,14 +240,25 @@ class InferenceService:
     ``embed`` / ``predict`` / ``predict_patches`` / ``heatmap`` are
     thread-safe; embedding work from all callers shares one fixed-shape
     device forward on ``device``.
+
+    ``mesh``: a data-parallel mesh over the process group; ``batch_size``
+    must divide by its rank count. On rank 0 the service serves as without
+    one, each batch's rows split over the ranks; on every other rank it
+    only builds the forward, and ``parallel/mesh.follow`` then serves rank
+    0's batches until rank 0's ``close()``. A row's features stay bitwise
+    independent of request packing.
     """
+
+    # seconds an idle sharded service waits before it sends the followers a
+    # keep-alive header: well inside the process group's timeout
+    KEEPALIVE_S = 60.0
 
     def __init__(self, embedder: Embedder, device: torch.device,
                  aggregator: Optional[torch.nn.Module] = None, model: str = "dsmil",
                  batch_size: int = 128, patch_size: int = 224,
                  max_wait_ms: float = 8.0,
                  thresholds: Optional[Sequence[float]] = None,
-                 average: bool = False, queue_limit: int = 256):
+                 average: bool = False, queue_limit: int = 256, mesh=None):
         self.embedder = embedder
         self.device = device
         self.aggregator = aggregator
@@ -243,10 +271,22 @@ class InferenceService:
         self.num_feats = embedder.cfg.num_feats
         self.num_classes = embedder.cfg.num_classes
         width = self.num_feats + self.num_classes
+        emb, idle, finish = embedder, None, None
+        if mesh is not None:
+            from tpumil_torch.parallel import mesh as pmesh
+
+            # kept here: the follower loop holds its forwards weakly
+            self._sharded = emb = pmesh.BatchShardedForward(
+                mesh, batch_size, embedder, device)
+            if not pmesh.is_main():
+                self._batcher = None  # a follower: parallel/mesh.follow
+                return
+            idle = functools.partial(pmesh.keepalive, self.KEEPALIVE_S)
+            finish = pmesh.stop_followers
 
         def fwd(imgs: np.ndarray) -> np.ndarray:
             # uint8 crosses the bus; embedder divides by 255 on the device
-            feats, logits = embedder(torch.from_numpy(imgs).to(device))
+            feats, logits = emb(torch.from_numpy(imgs).to(device))
             # one [B, K+C] device->host copy
             return torch.cat([feats, logits.float()], dim=-1).cpu().numpy()
 
@@ -254,7 +294,7 @@ class InferenceService:
         with torch.inference_mode():
             fwd(np.zeros((batch_size, patch_size, patch_size, 3), np.uint8))
         self._batcher = MicroBatcher(fwd, batch_size, patch_size, width,
-                                     max_wait_ms, queue_limit)
+                                     max_wait_ms, queue_limit, idle, finish)
 
     # -- embedding ----------------------------------------------------------
 
@@ -370,4 +410,5 @@ class InferenceService:
         return self._batcher.stats.as_dict(self.batch_size)
 
     def close(self) -> None:
-        self._batcher.close()
+        if self._batcher is not None:
+            self._batcher.close()

@@ -62,9 +62,8 @@ class EmbedderStageConfig:
     # the plain 7x7/s2 stem or its space-to-depth rewrite (the same
     # features); mirror of cli/compute_feats --space_to_depth
     space_to_depth: bool = True
-    # shard each patch batch over the first N devices (0 = one device); the
-    # embedding half of the port's scale-out (ROADMAP Queue 1 item 4b),
-    # refused above 0 for now
+    # split each patch batch of the feats and maps stages over N devices,
+    # one process each (0 = one device)
     data_parallel: int = 0
 
 

@@ -15,6 +15,16 @@ tpumil/train/simclr_trainer.py).
     norm couples no samples, so it is the monolithic step's gradient, summed
     over the microbatches in another order.
   * ``remat``: ``torch.utils.checkpoint`` (non-reentrant) around the model.
+  * ``mesh``: data parallel over the process group (one rank per device).
+    Every rank runs ``fit`` over the same seeded path order and decodes
+    only its block of each batch's rows; it draws the whole batch's
+    augmentation uniforms and takes its rows' (every op is per image, so
+    its views are the single-device views of those rows). The projections
+    are all-gathered through ``parallel/bag_shard.AllGather`` (whose
+    backward sums every rank's cotangent and keeps this rank's slice),
+    every rank computes the same full-batch NT-Xent, and the gradients are
+    averaged over the group before each rank's Adam step, so the
+    parameters stay equal on every rank. Rank 0 alone logs and writes.
 
 The recipe is the reference's: Adam(lr 1e-5, wd 1e-5) (simclr.py:72,
 config.yaml weight_decay '10e-6'), a constant lr through 10 warm-up epochs
@@ -31,7 +41,8 @@ epoch) in place of JAX's keys; each step draws from it.
 Resume (``resume=True``): the model and Adam ``state_dict``s, the
 generator's state and the counters are saved at every epoch end (and every
 ``save_every_n_steps`` steps) through ``io/native_ckpt``, so a resumed run
-continues the uninterrupted one exactly. The JAX package's legacy orbax
+continues the uninterrupted one exactly. The state is replicated, so one
+saved at any world size resumes at any other. The JAX package's legacy orbax
 layout has no counterpart: this package never wrote it and cannot read
 orbax, so such a state, like any unreadable or foreign one, starts training
 from scratch.
@@ -54,6 +65,7 @@ from tpumil_torch.models import simclr
 from tpumil_torch.models.simclr import SimCLR, SimCLRConfig
 from tpumil_torch.ops.augment import augment_pair_batch, draw_uniforms
 from tpumil_torch.ops.nt_xent import l2_normalize, nt_xent_loss
+from tpumil_torch.parallel import mesh as pmesh
 from tpumil_torch.train.optim import adam_torch, cosine_annealing_lr, set_lr
 from tpumil_torch.utils.device import select_device
 
@@ -87,18 +99,34 @@ class SimCLRTrainConfig:
     save_every_n_steps: Optional[int] = None
 
 
+def check_config(cfg: SimCLRTrainConfig, n: int = 1) -> None:
+    """The JAX trainer's refusals for a data-parallel mesh of ``n`` ranks
+    (1: none)."""
+    if cfg.batch_size % n:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} must be divisible by the "
+            f"data-parallel mesh size {n} (sharded batches split evenly "
+            f"over devices)")
+    mb = cfg.grad_cache_microbatch
+    if mb is not None and cfg.batch_size % mb:
+        raise ValueError(f"grad_cache_microbatch {mb} must divide "
+                         f"batch_size {cfg.batch_size}")
+    if mb is not None and mb % n:
+        raise ValueError(f"grad_cache_microbatch {mb} must be divisible "
+                         f"by the mesh size {n}")
+
+
 class SimCLRTrainer:
     def __init__(self, model_cfg: SimCLRConfig, cfg: SimCLRTrainConfig,
                  mesh=None, device: Optional[torch.device] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SimCLRTrainer(mesh=...) belongs to the embedding half of "
-                "the scale-out slice (ROADMAP Queue 1 item 4b), not ported "
-                "yet; run on one device")
-        mb = cfg.grad_cache_microbatch
-        if mb is not None and cfg.batch_size % mb:
-            raise ValueError(f"grad_cache_microbatch {mb} must divide "
-                             f"batch_size {cfg.batch_size}")
+        n = 1 if mesh is None else int(mesh.size())
+        check_config(cfg, n)
+        if mesh is not None and n != pmesh.world_size():
+            raise ValueError(f"a data-parallel SimCLR mesh must span the "
+                             f"process group ({pmesh.world_size()} ranks), "
+                             f"got {n}")
+        self.mesh = mesh
+        self.n_shard = n
         self.model_cfg = model_cfg
         self.cfg = cfg
         # None: the card (select_device("cuda"), which raises without one)
@@ -143,41 +171,65 @@ class SimCLRTrainer:
                   for i in range(0, images.shape[0], mb)]
         return (torch.cat([z[0] for z in zs]), torch.cat([z[1] for z in zs]))
 
+    def _whole_batch(self, z1: torch.Tensor, z2: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's projections -> the whole batch's, in row order (one
+        all-gather; autograd-aware)."""
+        if self.mesh is None:
+            return z1, z2
+        from tpumil_torch.parallel.bag_shard import AllGather
+
+        d = z1.shape[1]
+        z = AllGather.apply(torch.cat([z1, z2], dim=1), None).flatten(0, 1)
+        return z[:, :d], z[:, d:]
+
+    @property
+    def _microbatch(self) -> Optional[int]:
+        """Each rank's share of the grad-cache microbatch."""
+        mb = self.cfg.grad_cache_microbatch
+        return None if mb is None else mb // self.n_shard
+
     def train_step(self, model: SimCLR, opt: torch.optim.Optimizer,
                    u: torch.Tensor, images: torch.Tensor,
                    lr: float) -> torch.Tensor:
-        """One optimizer step on one batch; returns the loss (a 0-d device
-        tensor, no host sync)."""
+        """One optimizer step on one batch (with a mesh, this rank's rows
+        of it and of its uniforms); returns the loss (a 0-d device tensor,
+        no host sync)."""
         set_lr(opt, lr)
         opt.zero_grad(set_to_none=True)
-        mb = self.cfg.grad_cache_microbatch
+        mb = self._microbatch
         if mb is None:
-            loss = self.loss_from_z(*self.encode(model, u, images))
+            loss = self.loss_from_z(*self._whole_batch(
+                *self.encode(model, u, images)))
             loss.backward()
         else:
             z1, z2 = self._encode_microbatches(model, u, images, mb)
             z1.requires_grad_()
             z2.requires_grad_()
-            loss = self.loss_from_z(z1, z2)
+            loss = self.loss_from_z(*self._whole_batch(z1, z2))
             dz1, dz2 = torch.autograd.grad(loss, (z1, z2))
             for i in range(0, images.shape[0], mb):
                 s = slice(i, i + mb)
                 torch.autograd.backward(
                     self.encode(model, u[:, s], images[s]), (dz1[s], dz2[s]))
+        if self.mesh is not None:
+            from tpumil_torch.parallel.bag_shard import average_gradients
+
+            average_gradients(list(model.parameters()), None)
         opt.step()
         return loss.detach()
 
     @torch.no_grad()
     def eval_step(self, model: SimCLR, u: torch.Tensor,
                   images: torch.Tensor) -> torch.Tensor:
-        """The validation loss of one batch: microbatched when the
-        microbatch divides it."""
-        mb = self.cfg.grad_cache_microbatch
+        """The validation loss of one batch (with a mesh, of this rank's
+        rows): microbatched when the microbatch divides it."""
+        mb = self._microbatch
         if mb is not None and images.shape[0] % mb == 0:
             z1, z2 = self._encode_microbatches(model, u, images, mb)
         else:
             z1, z2 = self.encode(model, u, images)
-        return self.loss_from_z(z1, z2)
+        return self.loss_from_z(*self._whole_batch(z1, z2))
 
     # -- the schedule -----------------------------------------------------
 
@@ -187,8 +239,9 @@ class SimCLRTrainer:
         grad-cache microbatch when set (so eval_step always takes the
         O(microbatch) path; a non-multiple would encode the whole batch at
         once and run out of memory at exactly the scales grad-cache
-        enables), else 1. 0 = skip validation this epoch."""
-        unit = self.cfg.grad_cache_microbatch or 1
+        enables), else the mesh size (a batch splits evenly over the
+        ranks). 0 = skip validation this epoch."""
+        unit = self.cfg.grad_cache_microbatch or self.n_shard
         return min(self.cfg.batch_size, (n_valid // unit) * unit)
 
     def lr_at(self, epoch: int) -> float:
@@ -223,16 +276,43 @@ class SimCLRTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _rows(self, paths: Sequence[str], batch: int, first: int,
+              end: int) -> list:
+        """This rank's block of the rows of batches ``first``..``end - 1``
+        of ``batch`` paths each (all of them without a mesh)."""
+        b, r = batch // self.n_shard, self._rank
+        return [p for i in range(first, end)
+                for p in paths[i * batch + r * b:i * batch + (r + 1) * b]]
+
+    def _mine(self, u: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole batch's uniforms [2, B, ...]."""
+        b, r = u.shape[1] // self.n_shard, self._rank
+        return u[:, r * b:(r + 1) * b]
+
+    @property
+    def _rank(self) -> int:
+        return 0 if self.mesh is None else pmesh.rank()
+
     def fit(self, patch_paths: Sequence[str], run_dir: str,
             log: Callable[[str], None] = print,
             fine_tune_from: Optional[str] = None,
             resume: bool = False) -> dict:
         """Pretrain on ``patch_paths``; ``resume=True`` continues from the
-        train state under ``run_dir/state`` (the module docstring)."""
+        train state under ``run_dir/state`` (the module docstring). With a
+        mesh, every rank calls it with the same arguments."""
         from tpumil_torch.io import torch_ckpt
         from tpumil_torch.utils.prof import ScalarLogger, ThroughputMeter
 
         cfg = self.cfg
+        main = self._rank == 0
+        # a mesh's ranks save and load the replicated state together
+        save_train_state, load_train_state = (
+            (native_ckpt.save_train_state, native_ckpt.load_train_state)
+            if self.mesh is None else
+            (native_ckpt.save_sharded_train_state,
+             native_ckpt.load_sharded_train_state))
+        if not main:
+            log = lambda s: None  # noqa: E731 - rank 0 alone logs
         rng = np.random.default_rng(cfg.seed)
         paths = list(patch_paths)
         indices = rng.permutation(len(paths))
@@ -260,8 +340,15 @@ class SimCLRTrainer:
 
         ckpt_dir = os.path.join(run_dir, "checkpoints")
         state_dir = os.path.join(run_dir, "state")
-        os.makedirs(ckpt_dir, exist_ok=True)
-        scalars = ScalarLogger(run_dir)  # SummaryWriter role (simclr.py:36)
+        scalars = None
+        if main:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            scalars = ScalarLogger(run_dir)  # SummaryWriter (simclr.py:36)
+
+        def scalar(tag, value, step):
+            if scalars is not None:
+                scalars.log(tag, value, step)
+
         meter = ThroughputMeter("patches")
         best_valid = float("inf")
         start_epoch = 0
@@ -271,8 +358,7 @@ class SimCLRTrainer:
         if resume and (os.path.isdir(state_dir)
                        or os.path.isdir(state_dir + ".prev")):
             try:
-                st, meta = native_ckpt.load_train_state(state_dir,
-                                                        map_location="cpu")
+                st, meta = load_train_state(state_dir, map_location="cpu")
             except Exception as e:  # unreadable state: a fresh start
                 log(f"Train state under {state_dir} is unreadable ({e!r}).")
                 st, meta = None, {}
@@ -295,7 +381,7 @@ class SimCLRTrainer:
         n_iter = start_epoch * n_batches_per_epoch + start_batch
 
         def save_state(epoch, step_in_epoch, gen):
-            native_ckpt.save_train_state(
+            save_train_state(
                 state_dir,
                 {"model": model.state_dict(), "optimizer": opt.state_dict(),
                  "generator": gen.get_state()},
@@ -320,19 +406,20 @@ class SimCLRTrainer:
                 gen.set_state(resume_gen)
             step_in_epoch = skip
             loader = PatchBatchLoader(
-                epoch_paths[skip * cfg.batch_size:n_batches * cfg.batch_size],
-                cfg.batch_size, cfg.input_size, cfg.num_workers)
+                self._rows(epoch_paths, cfg.batch_size, skip, n_batches),
+                cfg.batch_size // self.n_shard, cfg.input_size,
+                cfg.num_workers)
             t0 = time.perf_counter()
             for images, _, _ in loader:
-                u = draw_uniforms(gen, cfg.batch_size)
+                u = self._mine(draw_uniforms(gen, cfg.batch_size))
                 loss = self.train_step(model, opt, u, self._images(images),
                                        lr)
-                meter.add(images.shape[0])
+                meter.add(cfg.batch_size)
                 if n_iter % cfg.log_every_n_steps == 0:
                     log(f"epoch {epoch} iter {n_iter} loss {float(loss):.4f} "
                         f"lr {lr:.2e} {meter}")
                     history["train_loss"].append(float(loss))
-                    scalars.log("train_loss", float(loss), n_iter)
+                    scalar("train_loss", float(loss), n_iter)
                 n_iter += 1
                 step_in_epoch += 1
                 if (cfg.save_every_n_steps
@@ -357,31 +444,37 @@ class SimCLRTrainer:
                         f"({len(valid_paths)} paths < the validation "
                         f"batch unit)")
                 else:
-                    v_batches = len(valid_paths) // v_bs
                     v_loader = PatchBatchLoader(
-                        valid_paths[:v_batches * v_bs], v_bs,
-                        cfg.input_size, cfg.num_workers)
+                        self._rows(valid_paths, v_bs, 0,
+                                   len(valid_paths) // v_bs),
+                        v_bs // self.n_shard, cfg.input_size,
+                        cfg.num_workers)
                     losses = [float(self.eval_step(
-                        model, draw_uniforms(gen, v_bs), self._images(images)))
-                        for images, _, _ in v_loader]
+                        model, self._mine(draw_uniforms(gen, v_bs)),
+                        self._images(images))) for images, _, _ in v_loader]
                     valid_loss = (float(np.mean(losses)) if losses
                                   else float("inf"))
                     history["valid_loss"].append(valid_loss)
-                    scalars.log("validation_loss", valid_loss, epoch)
+                    scalar("validation_loss", valid_loss, epoch)
                     if valid_loss < best_valid:
                         best_valid = valid_loss
-                        self.save(model, os.path.join(ckpt_dir, "model.pth"))
+                        if main:
+                            self.save(model,
+                                      os.path.join(ckpt_dir, "model.pth"))
                         log("saved")
-            scalars.log("cosine_lr_decay", lr, n_iter)
+            scalar("cosine_lr_decay", lr, n_iter)
             # crash-resume state: model, Adam moments, generator, counters
             save_state(epoch + 1, 0, gen)
-        scalars.close()
         ckpt_path = os.path.join(ckpt_dir, "model.pth")
-        if not os.path.exists(ckpt_path):
-            # no validation split ever ran (tiny datasets): persist the final
-            # weights so downstream stages always have a checkpoint
-            self.save(model, ckpt_path)
-            log("saved final params (no validation split)")
+        if main:
+            scalars.close()
+            if not os.path.exists(ckpt_path):
+                # no validation split ever ran (tiny datasets): persist the
+                # final weights so downstream stages always have a checkpoint
+                self.save(model, ckpt_path)
+                log("saved final params (no validation split)")
+        if self.mesh is not None:
+            pmesh.barrier()
         return {"best_valid_loss": best_valid, "history": history,
                 "checkpoint": ckpt_path, "model": model}
 
