@@ -27,7 +27,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   8. train     -- BagTrainer at full width on seeded synthetic bags up to
                   65529 instances: the kernel route against the eager route
                   from the same init and seed; ms per bag step; each route's
-                  working set per instance
+                  working set per instance; then a bf16 DSMILConfig
+                  (compute_dtype) from the same init and seed with
+                  fused_threshold=16384: losses within rtol 2e-2 of the f32
+                  eager route's and unlike them, no K1-K3 launch; one eager
+                  bag step at N=4000 and 65529 in bf16 and f32 in turns
+                  (host ms and torch.profiler device ms); the bf16 step's
+                  working set per instance; a bf16 DeviceBagStore's nbytes
+                  and one predict on it
   9. train_wsi -- python -m tpumil_torch.cli.train_wsi --device cuda on a
                   synthetic TCGA-shaped CSV dataset, 5-fold-cv
  10. train_mil -- the classic-MIL path on tests/data/musk1_mini.svm (K=166,
@@ -99,7 +106,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   instance); train_wsi --inst_shard 1 and --data_parallel 1
                   on [train_wsi]'s dataset (the inst-sharded folds equal the
                   single-device run's); a sharded fold state crashed and
-                  resumed mid-fold; --inst_shard 2 refused on one card
+                  resumed mid-fold; --inst_shard 2 refused on one card; one
+                  bf16 inst-sharded step at N=65529 against the unsharded
+                  bf16 step from the same weights (loss gap within 2e-2,
+                  weights within 2 lr)
  19. scale_out_embed -- the embedding half of scale-out at world 1 on
                   NCCL: FeatureExtractor(mesh) on 2 batches of 128 224^2
                   JPEGs bitwise the single-device features (and 37 rows
@@ -999,7 +1009,7 @@ def phase_pool_bf16(gpu: str, compiler_log: str) -> dict:
                                                            n),
             "_aligned": lambda: ap._aligned(dev_feats, w0, bf),
             "K1-bf16": lambda: ap.attention_pool_fwd_bf16(*pool_args),
-            "head": lambda: (ap._bag_logits(model, bemb),
+            "head": lambda: (model.bag_head(bemb),
                              masked_max(c_logits, mask, dim=0)),
             "_aligned by zero fill": lambda: aligned_zero_fill(dev_feats, w0,
                                                                bf)}
@@ -1172,7 +1182,135 @@ def phase_train(gpu: str) -> dict:
     log(f"[train] auto route for the 65536 bucket beside this store "
         f"({store.nbytes()} B): {'kernels' if auto._use_fused(65536, store.nbytes()) else 'eager'}"
         f" (budget {memory_budget_bytes(dev)} B)")
+    train_bf16(gpu, store, l_e)
     return {"launches": counts}
+
+
+def step_device_ms(trainer, model, opt, feats, label, steps: int = 5):
+    """Device-busy ms per eager bag step (the union of the device intervals
+    in a torch.profiler trace of ``steps`` synced steps), or None when the
+    trace holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.serve_profile import busy_us, device_events
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer._train_bags(model, opt, [(feats, label)] * steps, False, gen)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    return busy_us(events) / steps / 1e3 if events else None
+
+
+def train_bf16(gpu: str, store, eager_losses) -> None:
+    """The aggregator's bf16 compute dtype at the paper's width: BagTrainer
+    with a bf16 DSMILConfig from [train]'s init and host seed (eager, never
+    K1-K3, whatever fused_threshold says); bf16 and f32 eager bag steps in
+    turns; the bf16 step's working set per instance; a bf16 store."""
+    from tpumil_torch.data.device_store import DeviceBagStore
+    from tpumil_torch.models.dsmil import DSMILConfig
+    from tpumil_torch.ops import attention_pool as ap
+    from tpumil_torch.train.trainer import BagTrainer
+
+    dev = torch.device("cuda")
+    cfgs = {torch.float32: DSMILConfig(K, C),
+            torch.bfloat16: DSMILConfig(K, C, compute_dtype=torch.bfloat16)}
+    trainer = BagTrainer(cfgs[torch.bfloat16], weight_decay=1e-3,
+                         fused_threshold=16384, device=dev)
+    model, opt = trainer.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    kernels = (ap.attention_pool_fwd, ap.attention_pool_bwd1,
+               ap.attention_pool_bwd2)
+    for fn in kernels:  # the bf16 run starts here
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses, scores = [], None
+    for epoch in range(TRAIN_EPOCHS):
+        model, opt, loss = trainer.train_epoch(model, opt, store,
+                                               1e-4 / (epoch + 1), rng)
+        scores, _ = trainer.predict(model, store, rng=rng)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = [fn.launches for fn in kernels]
+    np.testing.assert_allclose(losses, eager_losses, rtol=2e-2)
+    if losses == list(eager_losses):
+        raise AssertionError("the bf16 losses equal the f32 losses: the "
+                             "compute dtype did not flow")
+    if trainer.fused_dispatches or any(launched):
+        raise AssertionError(f"the bf16 config reached the kernels: "
+                             f"{trainer.fused_dispatches} dispatches, "
+                             f"K1/K2/K3 launches {launched}")
+    if scores.shape != (store.num_bags, C) or not np.isfinite(scores).all():
+        raise AssertionError(f"bad bf16 scores {scores.shape}")
+    bf_model = model
+    params = {p.dtype for p in model.parameters()}
+    moments = {t.dtype for st in opt.state.values() for t in st.values()
+               if t.dim() > 0}
+    if params != {torch.float32} or moments != {torch.float32}:
+        raise AssertionError(f"bf16 training left f32: params {params}, "
+                             f"Adam {moments}")
+    gap = float(np.max(np.abs(np.asarray(losses) - eager_losses)
+                       / np.abs(eager_losses)))
+    log(f"[train] bf16 compute (fused_threshold=16384): {TRAIN_EPOCHS} "
+        f"epochs x {store.num_bags} bags + predict in {wall:.2f} s; losses "
+        f"{[f'{x:.6f}' for x in losses]} against the f32 eager route's "
+        f"{[f'{x:.6f}' for x in eager_losses]} (max relative gap {gap:.3e}, "
+        f"bar 2e-2, not equal); fused dispatches 0, K1/K2/K3 launches "
+        f"{launched}; parameters and Adam's moments f32; {gpu}")
+
+    # one eager bag step in each dtype, in turns (f32, bf16, bf16, f32), from
+    # the same init
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n in (4000, 65529):
+        feats, label = store.bag(TRAIN_N.index(n)), store.label(
+            TRAIN_N.index(n))
+        runs = {}
+        for dt, cfg in cfgs.items():
+            tr = BagTrainer(cfg, weight_decay=1e-3, fused_threshold=None,
+                            device=dev)
+            runs[dt] = (tr, *tr.init(torch.Generator().manual_seed(0)))
+        order = (torch.float32, torch.bfloat16, torch.bfloat16,
+                 torch.float32)
+        ms = {dt: [] for dt in cfgs}
+        for dt in order:
+            ms[dt].append(step_ms(*runs[dt], feats, label, False))
+        dev_ms = {dt: step_device_ms(*runs[dt], feats, label) for dt in cfgs}
+        busy = ", ".join(
+            f"{'f32' if dt == torch.float32 else 'bf16'} "
+            + ("not measured" if v is None else f"{v:.3f} ms")
+            for dt, v in dev_ms.items())
+        log(f"[train] one eager bag step at N={n}, K={K}, C={C} (host "
+            f"clock, synced, mean of 5, in turns f32/bf16/bf16/f32): f32 "
+            f"{ms[torch.float32][0]:.3f} / {ms[torch.float32][1]:.3f} ms, "
+            f"bf16 {ms[torch.bfloat16][0]:.3f} / {ms[torch.bfloat16][1]:.3f}"
+            f" ms; device busy per step (torch.profiler, 5 steps): {busy}; "
+            f"{gpu}")
+    tr, model, opt = runs[torch.bfloat16]
+    sizes = (16384, 65529)
+    peak = [peak_bytes(lambda: tr._train_bags(
+        model, opt, [(store.feats[:n], label)], False, gen)) for n in sizes]
+    log(f"[train] bf16 eager step peak bytes above residents at N={sizes}: "
+        f"{peak}; per instance {(peak[1] - peak[0]) / (sizes[1] - sizes[0]):.0f}"
+        f" B (slope; K={K}); {gpu}")
+
+    half = DeviceBagStore(synthetic_bags(TRAIN_N, 3), device=dev,
+                          dtype=torch.bfloat16)
+    if half.feats.dtype != torch.bfloat16 \
+            or 2 * half.feats.nbytes != store.feats.nbytes:
+        raise AssertionError(f"bf16 store: {half.feats.dtype}, "
+                             f"{half.feats.nbytes} B of features")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _ = trainer.predict(bf_model, half)
+    wall = time.perf_counter() - t0
+    want, _ = trainer.predict(bf_model, store)
+    np.testing.assert_array_equal(got, want)
+    log(f"[train] bf16 DeviceBagStore: nbytes {half.nbytes()} against the "
+        f"f32 store's {store.nbytes()} ({half.nbytes() / store.nbytes():.4f})"
+        f"; the bf16 trainer's predict on it in {wall:.3f} s, scores "
+        f"bitwise its predict on the f32 store; {gpu}")
 
 
 def phase_train_wsi() -> dict:
@@ -2562,6 +2700,44 @@ def phase_scale_out(gpu: str, wsi: dict) -> None:
     log(f"[scale_out] working set per instance (slope over N={sizes}): "
         f"sharded {(peaks['sharded'][1] - peaks['sharded'][0]) / dn:.0f} B, "
         f"eager {(peaks['eager'][1] - peaks['eager'][0]) / dn:.0f} B")
+
+    # one bf16 step, inst-sharded and unsharded, from the same weights: at
+    # world 1 the sharded forward rounds the unnormalized softmax weights
+    # and their sums where the eager one rounds the normalized weights, so
+    # the two agree to bf16's precision, not bitwise
+    cfg16 = DSMILConfig(K, C, compute_dtype=torch.bfloat16)
+    n = sizes[-1]
+    feats, label = store.bag(TRAIN_N.index(n)), store.label(TRAIN_N.index(n))
+    sharded = bag_shard.InstanceShardedBagTrainer(
+        cfg16, weight_decay=1e-3, device=dev, mesh=world)
+    eager = BagTrainer(cfg16, weight_decay=1e-3, fused_threshold=None,
+                       device=dev)
+    ms, ps = sharded.init(torch.Generator().manual_seed(0))
+    me, pe = eager.init(torch.Generator().manual_seed(0))
+    for fn in kernels:  # the bf16 sharded step starts here
+        fn.launches = 0
+    bag_shard.collective.calls = 0
+    loss_s = float(sharded._train_bags(ms, ps, [(feats, label)], False, gen))
+    calls = bag_shard.collective.calls
+    launched = [fn.launches for fn in kernels]
+    loss_e = float(eager._train_bags(me, pe, [(feats, label)], False, gen))
+    lr = ps.param_groups[0]["lr"]
+    worst = max(float((ms.state_dict()[k] - v).abs().max())
+                for k, v in me.state_dict().items())
+    gap = abs(loss_s - loss_e) / abs(loss_e)
+    # Adam's first step moves a weight by about lr either way, so weights
+    # whose gradient signs differ lie 2 lr apart
+    if gap > 2e-2 or worst > 2.0 * lr * (1 + 1e-3) or calls != 6 \
+            or any(launched):
+        raise AssertionError(
+            f"bf16 inst-sharded step at N={n}: loss {loss_s} vs {loss_e} "
+            f"(gap {gap:.3e}), params max |d| {worst:.3e}, {calls} "
+            f"collectives, K1/K2/K3 launches {launched}")
+    log(f"[scale_out] N={n}: one bf16 inst-sharded step (world 1, nccl) vs "
+        f"the unsharded bf16 step from the same weights: loss {loss_s:.6f} "
+        f"vs {loss_e:.6f}, relative gap {gap:.3e} (bar 2e-2); params max "
+        f"|d| {worst:.3e} (bar 2 lr = {2 * lr:.0e}); {calls} collectives, "
+        f"K1/K2/K3 launches {launched}; {gpu}")
 
     # the CLI, both modes at once beside [train_wsi]'s single-device run
     procs, t0 = {}, time.perf_counter()

@@ -7,7 +7,11 @@ same numpy inputs and, through io/from_jax, the same parameters.
 Bars: the forward within rtol 1e-5 / atol 1e-6 of JAX's; parameters after
 Adam steps within tests/test_torch_trainer.py's rtol 1e-3 / atol 2e-5;
 the data-parallel trainer mesh-invariant within rtol 1e-4 / atol 1e-5
-(tests/test_parallel.py's); parameters bitwise equal across ranks."""
+(tests/test_parallel.py's); parameters bitwise equal across ranks. A bf16
+config's losses differ from the f32 config's and lie within rtol 2e-2 of
+them (tests/test_parallel.py's bf16 bar), and within rtol 1e-2 of the
+unsharded bf16 step's and of JAX's bf16 steps (the bf16 epoch bar of
+tests/test_torch_compute_dtype.py)."""
 
 import types
 
@@ -25,6 +29,7 @@ from tpumil.data.device_store import DeviceBagStore as JStore
 from tpumil.models import dsmil as jdsmil
 from tpumil.models.dsmil import DSMILConfig as JCfg
 from tpumil.parallel import bag_shard as jbag_shard
+from tpumil.train import optim as joptim
 from tpumil.train import trainer as jtrainer
 from tpumil_torch.data.bags import Bag
 from tpumil_torch.data.device_store import DeviceBagStore
@@ -145,6 +150,61 @@ def test_sharded_steps_match_single_device_and_jax(world4):
     _close(params, _state(p))
 
 
+def _gap(got, want) -> float:
+    return float(np.max(np.abs(np.asarray(got) - np.asarray(want))
+                        / np.abs(np.asarray(want))))
+
+
+def test_inst_sharded_trainer_honours_compute_dtype(world4):
+    """Three InstanceShardedBagTrainer steps at world 4 with a bf16 config
+    against the f32 config's (the dtype flowed: the losses differ, within
+    the bf16 bar), the port's unsharded bf16 step and the step of JAX's
+    InstanceShardedBagTrainer with a bf16 config on 4 devices. Parameters
+    and Adam's moments stay f32, bitwise equal across ranks; still 6
+    collectives a step (gloo takes the bf16 payloads as they are)."""
+    states, results = world4
+    l32, _, _, _ = results[0]["trainer_steps"]["torch.float32"]
+    l16, p16, moments, calls = results[0]["trainer_steps"]["torch.bfloat16"]
+    np.testing.assert_allclose(l32, results[0]["steps"][0], rtol=1e-6)
+    assert l16 != l32
+    np.testing.assert_allclose(l16, l32, rtol=2e-2,
+                               err_msg=f"bf16 vs f32 gap {_gap(l16, l32)}")
+    assert calls == 6 and moments == {"torch.float32"}
+    assert {t.dtype for t in p16.values()} == {torch.float32}
+    for r in range(1, 4):
+        for name, t in p16.items():
+            other = results[r]["trainer_steps"]["torch.bfloat16"][1][name]
+            assert torch.equal(other, t), (r, name)
+
+    feats, mask, label = util.step_bag()
+    eager = BagTrainer(DSMILConfig(64, 2, compute_dtype=torch.bfloat16),
+                       weight_decay=1e-3, fused_threshold=None, device=CPU)
+    model = util.dsmil_from(states["step"], 64, 2)
+    opt = eager.make_optimizer(model)
+    set_lr(opt, 2e-3)
+    item = (torch.from_numpy(feats[mask]), torch.from_numpy(label))
+    want = [float(eager._train_bags(model, opt, [item], False, None))
+            for _ in range(3)]
+    np.testing.assert_allclose(l16, want, rtol=1e-2,
+                               err_msg=f"gap to unsharded {_gap(l16, want)}")
+
+    jm = Mesh(np.asarray(jax.devices()[:4]), ("inst",))
+    jt = jbag_shard.InstanceShardedBagTrainer(
+        JCfg(64, 2, compute_dtype=jnp.bfloat16), mesh=jm,
+        optimizer=joptim.adam_torch(betas=(0.5, 0.9), weight_decay=1e-3))
+    p = _jax_params(3, 64)
+    s = jt.optimizer.init(p)
+    f, m = jbag_shard.shard_bag(jm, jnp.asarray(feats), jnp.asarray(mask))
+    jlosses = []
+    for _ in range(3):
+        p, s, loss = jt._inst_step(p, s, f, m, jnp.asarray(label),
+                                   jnp.asarray(2e-3, jnp.float32),
+                                   jnp.ones((2,), jnp.float32))
+        jlosses.append(float(loss))
+    np.testing.assert_allclose(l16, jlosses, rtol=1e-2,
+                               err_msg=f"gap to JAX {_gap(l16, jlosses)}")
+
+
 def test_train_bags_sharded_epoch(world4):
     """A train_bags_sharded epoch at world 4 visits the bags in the
     permutation JAX's train_bags_sharded draws from the same generator and
@@ -216,6 +276,51 @@ def test_data_parallel_step_matches_jax(world_of_one):
         torch.from_numpy(labels), lr=1e-3, real=real)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
     _close(util.params_of(model), _state(p))
+
+
+def test_data_parallel_trainer_honours_compute_dtype(world_of_one):
+    """DataParallelBagTrainer (world 1) with a bf16 config: its losses differ
+    from the f32 config's and lie within the bf16 bar, its parameters stay
+    f32; and one bf16 step of make_sharded_train_step against JAX's on its
+    8-device mesh (test_data_parallel_step_matches_jax's inputs)."""
+    from tpumil.parallel import mesh as jmesh
+    from tpumil.parallel import sharded_train as jsharded
+
+    l32, s32, _ = util.data_parallel_run(1)
+    l16, s16, p16 = util.data_parallel_run(1, torch.bfloat16)
+    assert not np.array_equal(l16, l32)
+    np.testing.assert_allclose(l16, l32, rtol=2e-2,
+                               err_msg=f"bf16 vs f32 gap {_gap(l16, l32)}")
+    np.testing.assert_allclose(s16, s32, atol=2e-2)
+    assert {t.dtype for t in p16.values()} == {torch.float32}
+
+    rng = np.random.default_rng(0)
+    b, n, k = 8, 64, 64
+    feats = rng.standard_normal((b, n, k)).astype(np.float32)
+    mask = rng.random((b, n)) < 0.9
+    labels = np.eye(2, dtype=np.float32)[rng.integers(0, 2, size=b)]
+    real = np.arange(b) < 5
+    params = _jax_params(0, k)
+    state = _state(params)  # JAX's step donates params
+    jm = jmesh.make_mesh(8)
+    step, optimizer = jsharded.make_sharded_train_step(
+        JCfg(k, 2, compute_dtype=jnp.bfloat16), jm)
+    f, m, l = jsharded.device_put_batch(jm, feats, mask, labels)
+    _, _, want = step(params, optimizer.init(params), f, m, jnp.asarray(l),
+                      1e-3, jnp.asarray(real))
+    got = {}
+    for dt in (torch.float32, torch.bfloat16):
+        pstep, make_opt = sharded_train.make_sharded_train_step(
+            DSMILConfig(k, 2, compute_dtype=dt),
+            mesh.make_mesh(1, device_type="cpu"))
+        model = util.dsmil_from(state, k, 2)
+        model, _, got[dt] = pstep(
+            model, make_opt(model.parameters()),
+            [torch.from_numpy(feats[i][mask[i]]) for i in range(b)],
+            torch.from_numpy(labels), lr=1e-3, real=real)
+    assert float(got[torch.bfloat16]) != float(got[torch.float32])
+    np.testing.assert_allclose(float(got[torch.bfloat16]), float(want),
+                               rtol=1e-2)
 
 
 def test_world_size_refusals(world4):

@@ -193,6 +193,35 @@ def sharded_steps(state, steps: int = 3, lr: float = 2e-3):
     return losses, params_of(model), bag_shard.collective.calls // steps
 
 
+def sharded_trainer_steps(state, compute_dtype, steps: int = 3,
+                          lr: float = 2e-3):
+    """``steps`` Adam steps of InstanceShardedBagTrainer over the whole world
+    with a DSMILConfig of ``compute_dtype``, on step_bag()'s real rows (the
+    trainer pads them to the 256 bucket and splits that over the ranks):
+    (losses, parameters, optimizer state dtypes) of this rank, and the
+    collective calls per step."""
+    from tpumil_torch.models.dsmil import DSMILConfig
+    from tpumil_torch.parallel import bag_shard, mesh
+    from tpumil_torch.train.optim import set_lr
+
+    m = mesh.make_mesh(inst_parallel=mesh.world_size(), device_type="cpu")
+    tr = bag_shard.InstanceShardedBagTrainer(
+        DSMILConfig(64, 2, compute_dtype=compute_dtype), weight_decay=1e-3,
+        device=CPU, mesh=m)
+    model = dsmil_from(state, 64, 2)
+    opt = tr.make_optimizer(model)
+    set_lr(opt, lr)
+    feats, mask, label = step_bag()
+    item = (torch.from_numpy(feats[mask]), torch.from_numpy(label))
+    losses = []
+    bag_shard.collective.calls = 0
+    for _ in range(steps):
+        losses.append(float(tr._train_bags(model, opt, [item], False, None)))
+    dtypes = {str(t.dtype) for st in opt.state.values() for t in st.values()
+              if t.dim() > 0}
+    return losses, params_of(model), dtypes, bag_shard.collective.calls // steps
+
+
 def sharded_epoch(state, seed: int = 9, lr: float = 2e-3):
     """One train_bags_sharded epoch over epoch_bags() in the permutation of
     ``default_rng(seed)``, over the whole world."""
@@ -251,15 +280,18 @@ def resume_epochs(path: str, epochs: int = 3):
     return params_of(model)
 
 
-def data_parallel_run(n_dev: int):
+def data_parallel_run(n_dev: int, compute_dtype=torch.float32):
     """DataParallelBagTrainer over make_mesh(n_dev) on ragged_bags(): two
-    epochs and a predict (tests/test_parallel.py's invariance case)."""
+    epochs and a predict (tests/test_parallel.py's invariance case), with a
+    DSMILConfig of ``compute_dtype``."""
     from tpumil_torch.data.bags import Bag
     from tpumil_torch.models.dsmil import DSMILConfig
     from tpumil_torch.parallel import mesh
     from tpumil_torch.parallel.sharded_train import DataParallelBagTrainer
 
-    tr = DataParallelBagTrainer(DSMILConfig(16, 1), weight_decay=1e-3,
+    tr = DataParallelBagTrainer(DSMILConfig(16, 1,
+                                            compute_dtype=compute_dtype),
+                                weight_decay=1e-3,
                                 device=CPU,
                                 mesh=mesh.make_mesh(n_dev, device_type="cpu"))
     model, opt = tr.init(torch.Generator().manual_seed(0))
@@ -307,6 +339,8 @@ def world4(fwd_state, step_state, epoch_state):
             "fwd4": sharded_forward(fwd_state, 4),
             "fwd2": sharded_forward(fwd_state, 2),
             "steps": sharded_steps(step_state),
+            "trainer_steps": {str(dt): sharded_trainer_steps(step_state, dt)
+                              for dt in (torch.float32, torch.bfloat16)},
             "epoch": sharded_epoch(epoch_state),
             "dp": data_parallel_run(4)}
 

@@ -20,13 +20,16 @@ from tpumil_torch.utils.device import select_device
 
 
 class DeviceBagStore:
-    """Bags resident on ``device`` (None: the card; raises without one).
-    ``bag(i)`` is bag ``i``'s ``[N_i, K]`` slice; ``index[nmax]`` lists, in
-    bucket-row order, the positions of the bags whose bucket length is
-    ``nmax``; ``counts[nmax]`` is their number."""
+    """Bags resident on ``device`` (None: the card; raises without one),
+    their features held in ``dtype`` (f32, or bf16 for half the bytes: the
+    trainers' forwards cast each bag to their compute dtype). ``bag(i)`` is
+    bag ``i``'s ``[N_i, K]`` slice; ``index[nmax]`` lists, in bucket-row
+    order, the positions of the bags whose bucket length is ``nmax``;
+    ``counts[nmax]`` is their number."""
 
     def __init__(self, bags: Sequence[Bag], min_bucket: int = 16,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 dtype: torch.dtype = torch.float32):
         device = select_device("cuda") if device is None else device
         sizes = [b.num_instances for b in bags]
         feats = np.concatenate([np.asarray(b.feats, np.float32) for b in bags])
@@ -34,7 +37,7 @@ class DeviceBagStore:
         groups: Dict[int, List[int]] = {}
         for i, n in enumerate(sizes):
             groups.setdefault(bucket_length(n, min_bucket), []).append(i)
-        self._init(torch.from_numpy(feats).to(device),
+        self._init(torch.from_numpy(feats).to(device, dtype),
                    np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64),
                    labels.astype(np.float32), [b.name for b in bags],
                    {nmax: np.asarray(idx) for nmax, idx in sorted(groups.items())})

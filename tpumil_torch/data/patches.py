@@ -119,7 +119,7 @@ class PatchBatchLoader:
         from tpumil_torch.utils import native
 
         arr, err = native.decode_batch(chunk, self.patch_size,
-                                       self.num_workers)
+                                       self.num_workers, as_float=False)
         # -4: a source of another size; re-decode it through PIL so that the
         # resampling is the PIL path's
         for j in np.nonzero(err == -4)[0]:

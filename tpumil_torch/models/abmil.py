@@ -14,7 +14,9 @@ trainers, schemes and the server take either:
 
 The module's ``state_dict`` keys are the JAX package's ABMIL ``.pth``
 schema (``i_classifier.fc.*``, ``b_classifier.attention_{v,u,w}.*``,
-``b_classifier.fc.*``). Every matmul is true f32 (TF32 off).
+``b_classifier.fc.*``). Every matmul is true f32 (TF32 off); with
+``compute_dtype=torch.bfloat16`` the forward runs in bf16, the weights cast
+per call, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from tpumil_torch.models.dsmil import DSMILConfig, _set, max_instance_logits
+from tpumil_torch.models.dsmil import (DSMILConfig, _set, linear,
+                                       max_instance_logits, sigmoid)
 from tpumil_torch.ops.init import orthogonal_torch
 from tpumil_torch.ops.masked import masked_softmax
 from tpumil_torch.utils.device import disable_tf32, select_device
@@ -76,29 +79,32 @@ class ABMIL(nn.Module):
 
     def forward(self, feats: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 ins_logits: Optional[torch.Tensor] = None,
-                dropout_generator: Optional[torch.Generator] = None
+                dropout_generator: Optional[torch.Generator] = None, *,
+                compute_dtype: torch.dtype = torch.float32
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """feats ``[B, N, K]`` or ``[N, K]``; mask ``[B, N]`` bool (True =
         real) or None; ins_logits optionally precomputed ``[B, N, C]``.
         Returns ``(ins_logits [B,N,C], bag_logits [B,C], A [B,N,C],
-        B [B,C,K])`` as ``DSMIL`` does: the one attention head broadcast per
-        class. ``dropout_generator`` is accepted for the trainer and
-        ignored (no value stream here)."""
+        B [B,C,K])`` in ``compute_dtype``, as ``DSMIL`` does: the one
+        attention head broadcast per class. ``dropout_generator`` is
+        accepted for the trainer and ignored (no value stream here)."""
         disable_tf32()
+        dt = compute_dtype
         squeeze = feats.dim() == 2
         if squeeze:
             feats = feats[None]
             mask = None if mask is None else mask[None]
             ins_logits = None if ins_logits is None else ins_logits[None]
-        f = feats.float()
-        c = ins_logits.float() if ins_logits is not None \
-            else self.i_classifier.fc(f)
+        f = feats.to(dt)
+        c = ins_logits.to(dt) if ins_logits is not None \
+            else linear(f, self.i_classifier.fc, dt)
         bc = self.b_classifier
-        gate = bc.attention_w(torch.tanh(bc.attention_v(f))
-                              * torch.sigmoid(bc.attention_u(f)))  # [B, N, 1]
+        gate = linear(torch.tanh(linear(f, bc.attention_v, dt))
+                      * sigmoid(linear(f, bc.attention_u, dt)),
+                      bc.attention_w, dt)                           # [B, N, 1]
         attn1 = masked_softmax(gate, mask, dim=1)
         bemb1 = torch.einsum("bno,bnk->bok", attn1, f)              # [B, 1, K]
-        bag_logits = bc.fc(bemb1[:, 0, :])                          # [B, C]
+        bag_logits = linear(bemb1[:, 0, :], bc.fc, dt)              # [B, C]
         num_classes = c.shape[-1]
         attn = attn1.expand(-1, -1, num_classes)
         bemb = bemb1.expand(-1, num_classes, -1)

@@ -15,7 +15,11 @@ Math per bag, given instance features ``feats in R^{N x K}``:
   7. bag logits        out_d = sum_{c,k} Wf[d,c,k] * B[c,k] + bf  [C]
 
 Every matmul is true f32 (TF32 off), like the JAX package's HIGHEST
-precision. Bags may be batched ``[B, N, K]`` with a padding mask, or passed
+precision. ``forward(..., compute_dtype=torch.bfloat16)`` runs the whole
+forward in bf16 as the JAX package's does: feats, every weight and bias
+(cast per call; the parameters stay f32, and their gradients flow back
+through the casts), the attention scale, the einsums and the softmax.
+Bags may be batched ``[B, N, K]`` with a padding mask, or passed
 unpadded as ``[N, K]``: the power-of-two padding of the JAX package exists
 for XLA's static shapes and is not needed here.
 """
@@ -27,6 +31,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tpumil_torch.ops.init import orthogonal_torch
@@ -43,6 +48,37 @@ class DSMILConfig:
     nonlinear: bool = True
     passing_v: bool = False
     dropout_v: float = 0.0
+    # dtype of the aggregator forward (trainers pass it to ``forward``);
+    # the parameters stay f32
+    compute_dtype: torch.dtype = torch.float32
+
+
+def in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: a scalar that a forward in ``dtype``
+    uses as the JAX package's does, where a Python number takes the
+    array's dtype."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic function. Below f32 it is ``1 / (1 + exp(-x))`` with
+    each step rounded to ``x``'s dtype, as ``jax.nn.sigmoid`` is lowered
+    (``torch.sigmoid`` rounds once, and differs in ~30% of bf16 values)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def linear(x: torch.Tensor, layer: nn.Module, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """``layer`` (a Linear) applied in ``dtype``: its weight and bias are
+    cast per call, so the parameters stay f32. Below f32 the product is
+    rounded before the bias is added, as the JAX package's ``_linear``
+    rounds it (``F.linear`` would add the bias before its one rounding)."""
+    w, b = layer.weight.to(dtype), layer.bias.to(dtype)
+    if dtype == torch.float32:
+        return F.linear(x, w, b)
+    return torch.matmul(x, w.T) + b
 
 
 def max_instance_logits(ins_logits: torch.Tensor,
@@ -105,46 +141,71 @@ class DSMIL(nn.Module):
 
     def forward(self, feats: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 ins_logits: Optional[torch.Tensor] = None,
-                dropout_generator: Optional[torch.Generator] = None
+                dropout_generator: Optional[torch.Generator] = None, *,
+                compute_dtype: torch.dtype = torch.float32
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """feats ``[B, N, K]`` or ``[N, K]``; mask ``[B, N]`` bool (True =
         real) or None; ins_logits optionally precomputed ``[B, N, C]``.
         Returns ``(ins_logits [B,N,C], bag_logits [B,C], A [B,N,C],
-        B [B,C,K])``, without the batch dim for 2-D input. Attention of
-        padded rows is exactly 0."""
+        B [B,C,K])`` in ``compute_dtype``, without the batch dim for 2-D
+        input. Attention of padded rows is exactly 0. ``compute_dtype`` is
+        not read from ``cfg``: callers that want bf16 pass
+        ``cfg.compute_dtype``, as the JAX package's do."""
         disable_tf32()
+        dt = compute_dtype
         squeeze = feats.dim() == 2
         if squeeze:
             feats = feats[None]
             mask = None if mask is None else mask[None]
             ins_logits = None if ins_logits is None else ins_logits[None]
-        f = feats.float()
-        c = ins_logits.float() if ins_logits is not None \
-            else self.i_classifier.fc(f)
-        bc = self.b_classifier
-        q = bc.q(f)                                          # [B, N, D]
-        v = self._values(f, dropout_generator)               # [B, N, K]
+        f = feats.to(dt)
+        c = ins_logits.to(dt) if ins_logits is not None \
+            else self.instance_logits(f, dt)
+        q = self.queries(f, dt)                              # [B, N, D]
+        v = self._values(f, dropout_generator, dt)           # [B, N, K]
         crit = masked_argmax(c, mask, dim=1)                 # [B, C]
         q_max = torch.gather(q, 1, crit[..., None].expand(-1, -1, q.shape[-1]))
         a_logits = torch.einsum("bnd,bcd->bnc", q, q_max) \
-            * (1.0 / math.sqrt(ATTN_DIM))
+            * in_dtype(1.0 / math.sqrt(ATTN_DIM), dt)
         attn = masked_softmax(a_logits, mask, dim=1)         # [B, N, C]
         bemb = torch.einsum("bnc,bnk->bck", attn, v)         # [B, C, K]
-        bag_logits = torch.einsum("bck,dck->bd", bemb, bc.fcc.weight) \
-            + bc.fcc.bias
+        bag_logits = self.bag_head(bemb, dt)
         if squeeze:
             return c[0], bag_logits[0], attn[0], bemb[0]
         return c, bag_logits, attn, bemb
 
-    def _values(self, f: torch.Tensor,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
-        """V = feats, or Dropout -> Linear -> ReLU with ``passing_v``. The
-        dropout is drawn here from ``generator`` (in training mode only),
-        not by the module's ``nn.Dropout``, which stays for the checkpoint
-        layout."""
+    def instance_logits(self, f: torch.Tensor,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """``c = f Wi^T + bi`` in ``dtype``."""
+        return linear(f, self.i_classifier.fc[0], dtype)
+
+    def queries(self, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The query stream in ``dtype``: Linear -> ReLU -> Linear -> Tanh
+        (nonlinear) or one Linear."""
+        q = self.b_classifier.q
+        if self.cfg.nonlinear:
+            return torch.tanh(linear(torch.relu(linear(x, q[0], dtype)),
+                                     q[2], dtype))
+        return linear(x, q, dtype)
+
+    def bag_head(self, bemb: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The Conv1d(C, C, K) bag head as a full contraction over
+        ``bemb [..., C, K]``, in ``dtype``."""
+        fcc = self.b_classifier.fcc
+        return torch.einsum("...ck,dck->...d", bemb, fcc.weight.to(dtype)) \
+            + fcc.bias.to(dtype)
+
+    def _values(self, f: torch.Tensor, generator: Optional[torch.Generator],
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """V = feats, or Dropout -> Linear -> ReLU with ``passing_v``, on
+        ``f`` in ``dtype``. The dropout is drawn here from ``generator``
+        (in training mode only), not by the module's ``nn.Dropout``, which
+        stays for the checkpoint layout; the kept values are divided by
+        ``1 - p`` in ``dtype``."""
         if not self.cfg.passing_v:
             return f
-        v = self.b_classifier.v
         p = self.cfg.dropout_v
         if self.training and p > 0.0:
             if generator is None:
@@ -152,8 +213,8 @@ class DSMIL(nn.Module):
                                  "torch.Generator")
             keep = torch.rand(f.shape, generator=generator,
                               device=f.device) < 1.0 - p
-            f = torch.where(keep, f / (1.0 - p), 0.0)
-        return v[2](v[1](f))
+            f = torch.where(keep, f / in_dtype(1.0 - p, dtype), 0.0)
+        return torch.relu(linear(f, self.b_classifier.v[1], dtype))
 
 
 def _set(param: torch.Tensor, value: torch.Tensor) -> None:
@@ -197,12 +258,12 @@ def torch_default_init_params(generator: torch.Generator, cfg: DSMILConfig,
 
 def bag_scores(model: DSMIL, feats: torch.Tensor,
                mask: Optional[torch.Tensor] = None, *,
-               average: bool = False) -> torch.Tensor:
-    """``sigmoid(bag_logits)``; with ``average`` the sigmoid of the max
-    instance logit is ADDED, undivided, as the reference's train_tcga.py
-    ``--average`` does."""
-    c, bag_logits, _, _ = model(feats, mask)
+               average: bool = False,
+               compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``sigmoid(bag_logits)``, in ``compute_dtype``; with ``average`` the
+    sigmoid of the max instance logit is ADDED, undivided, as the
+    reference's train_tcga.py ``--average`` does."""
+    c, bag_logits, _, _ = model(feats, mask, compute_dtype=compute_dtype)
     if average:
-        return torch.sigmoid(bag_logits) + \
-            torch.sigmoid(max_instance_logits(c, mask))
-    return torch.sigmoid(bag_logits)
+        return sigmoid(bag_logits) + sigmoid(max_instance_logits(c, mask))
+    return sigmoid(bag_logits)

@@ -10,7 +10,9 @@ Users of the reference compose ``MILNet(IClassifier, BClassifier)``
     scores = net.score(feats, mask)                           # sigmoid bag
     net.save_pth("out.pth")                                   # reference ckpt
 
-``device`` None is the card (raises without one).
+``device`` None is the card (raises without one). The forward runs in
+``cfg.compute_dtype``: a bf16 facade is ``MILNet(module, cfg_bf16)``, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpumil_torch.models.dsmil import DSMILConfig
+from tpumil_torch.models.dsmil import DSMILConfig, sigmoid
 from tpumil_torch.models.registry import get_model
 from tpumil_torch.utils.device import select_device
 
@@ -72,19 +74,23 @@ class MILNet:
 
     def __call__(self, feats, mask=None):
         """``(ins_logits, bag_logits, A, B)`` of feats ``[N, K]`` or
-        ``[B, N, K]`` (numpy or tensors) with an optional bool mask."""
+        ``[B, N, K]`` (numpy or tensors) with an optional bool mask, in
+        ``cfg.compute_dtype``."""
         with torch.no_grad():
             return self.module(self._tensor(feats).float(),
-                               None if mask is None else self._tensor(mask).bool())
+                               None if mask is None else self._tensor(mask).bool(),
+                               compute_dtype=self.cfg.compute_dtype)
 
     def score(self, feats, mask=None, *, average: bool = False) -> np.ndarray:
         """Sigmoid bag scores. ``average`` adds the sigmoid of the max
         instance logit WITHOUT dividing, as the trainer's --average does
         (train_tcga.py:107), so saved optimal thresholds transfer
-        (testing_tcga.py:87 divides by 2; divide yourself for that scale)."""
+        (testing_tcga.py:87 divides by 2; divide yourself for that scale).
+        The scores are computed in ``cfg.compute_dtype`` and returned as
+        float32 (numpy has no bf16); bf16 values are exact in float32."""
         c, bag_logits, _, _ = self(feats, mask)
-        s = torch.sigmoid(bag_logits)
+        s = sigmoid(bag_logits)
         if average:
-            s = s + torch.sigmoid(self.module.max_instance_logits(
+            s = s + sigmoid(self.module.max_instance_logits(
                 c, None if mask is None else self._tensor(mask).bool()))
-        return s.cpu().numpy()
+        return s.float().cpu().numpy()

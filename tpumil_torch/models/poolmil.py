@@ -19,6 +19,8 @@ The ``state_dict`` is the JAX package's pooling ``.pth`` schema: the
 ``i_classifier.fc.*`` head and ``pooling.mode``, a 0-d f32 buffer (0.0 for
 mean, 1.0 for max) that no optimizer sees. The trainers apply the
 dual-stream objective to every model; for maxpool its two terms coincide.
+With ``compute_dtype=torch.bfloat16`` the forward runs in bf16, the pooling
+weights built in the logits' dtype, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import torch
 from torch import nn
 
 from tpumil_torch.models.abmil import InstanceClassifier
-from tpumil_torch.models.dsmil import DSMILConfig, _set, max_instance_logits
+from tpumil_torch.models.dsmil import (DSMILConfig, _set, linear,
+                                       max_instance_logits)
 from tpumil_torch.ops.init import orthogonal_torch
 from tpumil_torch.ops.masked import masked_argmax, masked_max, masked_mean
 from tpumil_torch.utils.device import disable_tf32, select_device
@@ -71,20 +74,22 @@ class _PoolMIL(nn.Module):
 
     def forward(self, feats: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 ins_logits: Optional[torch.Tensor] = None,
-                dropout_generator: Optional[torch.Generator] = None
+                dropout_generator: Optional[torch.Generator] = None, *,
+                compute_dtype: torch.dtype = torch.float32
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-        """As ``DSMIL.forward``: ``(ins_logits, bag_logits, A, B)``, without
-        the batch dim for 2-D input. ``dropout_generator`` is accepted for
-        the trainer and ignored."""
+        """As ``DSMIL.forward``: ``(ins_logits, bag_logits, A, B)`` in
+        ``compute_dtype``, without the batch dim for 2-D input.
+        ``dropout_generator`` is accepted for the trainer and ignored."""
         disable_tf32()
+        dt = compute_dtype
         squeeze = feats.dim() == 2
         if squeeze:
             feats = feats[None]
             mask = None if mask is None else mask[None]
             ins_logits = None if ins_logits is None else ins_logits[None]
-        f = feats.float()
-        c = ins_logits.float() if ins_logits is not None \
-            else self.i_classifier.fc(f)                            # [B, N, C]
+        f = feats.to(dt)
+        c = ins_logits.to(dt) if ins_logits is not None \
+            else linear(f, self.i_classifier.fc, dt)                # [B, N, C]
         bag_logits, attn = self._pool(c, mask)
         bemb = torch.einsum("bnc,bnk->bck", attn, f)                # [B, C, K]
         if squeeze:

@@ -502,19 +502,14 @@ def _q_weights(model):
     return q.weight, q.bias, None, None
 
 
-def _bag_logits(model, bemb):
-    fcc = model.b_classifier.fcc
-    return torch.einsum("ck,dck->d", bemb, fcc.weight) + fcc.bias
-
-
 def _instance_stream(model, feats, n_valid):
     """(instance logits [N, C], row mask or None, q_max [C, D])."""
-    c_logits = model.i_classifier.fc(feats)
+    c_logits = model.instance_logits(feats)
     mask = None
     if n_valid < feats.shape[0]:
         mask = torch.arange(feats.shape[0], device=feats.device) < n_valid
     crit = masked_argmax(c_logits, mask, dim=0)
-    return c_logits, mask, model.b_classifier.q(feats[crit])
+    return c_logits, mask, model.queries(feats[crit])
 
 
 def _aligned(feats, w0, dtype: torch.dtype = torch.float32):
@@ -545,19 +540,20 @@ def fused_bag_loss(model, feats: torch.Tensor, label: torch.Tensor,
     pooling through ``TrainablePool`` (the ONE definition, as
     make_fused_bag_loss is). q_max = q(feats[crit]) stays outside the
     Function, in plain autograd. Needs the nonlinear q and
-    passing_v=False."""
+    passing_v=False. A bf16 bag (a bf16 store's) is taken in f32."""
     if not model.cfg.nonlinear or model.cfg.passing_v:
         raise ValueError("fused_bag_loss needs nonlinear q and passing_v=False")
     from tpumil_torch.utils.device import disable_tf32
 
     disable_tf32()
     n_valid = feats.shape[0]
+    feats = feats.float()  # a bf16 store's bag: f32 from here on
     c_logits, mask, q_max = _instance_stream(model, feats, n_valid)
     w0, b0, w2, b2 = _q_weights(model)
     f, w0 = _aligned(feats, w0)
     bemb = TrainablePool.apply(f, w0, b0, w2, b2, q_max, n_valid, True)
     bemb = bemb[:, :feats.shape[1]]
-    return dual_stream_loss(_bag_logits(model, bemb),
+    return dual_stream_loss(model.bag_head(bemb),
                             masked_max(c_logits, mask, dim=0), label,
                             pos_weight)
 
@@ -570,7 +566,8 @@ def fused_bag_forward(model, feats: torch.Tensor,
     or through K1-bf16 with ``feats_dtype=torch.bfloat16``: then only the
     pool's inputs (feats, W0, W2, q_max) are cast to bf16, and the instance
     stream, the critical instances, q_max = q(feats[crit]) and the bag head
-    stay f32 on the given feats, as in the JAX package. Refuses a passing_v
+    stay f32 on the given feats, as in the JAX package; bf16 feats (a bf16
+    store's bag) are taken in f32 there. Refuses a passing_v
     model: the kernel pools raw feats as the value stream, and ignoring a
     v-projection would return wrong logits."""
     if model.cfg.passing_v:
@@ -586,12 +583,14 @@ def fused_bag_forward(model, feats: torch.Tensor,
     pool = (attention_pool_fwd if feats_dtype == torch.float32
             else attention_pool_fwd_bf16)
     with torch.no_grad():
-        c_logits, mask, q_max = _instance_stream(model, feats, n_valid)
+        f32 = feats.float()  # a bf16 store's bag: one f32 copy
+        c_logits, mask, q_max = _instance_stream(model, f32, n_valid)
         w0, b0, w2, b2 = _q_weights(model)
-        f, w0 = _aligned(feats, w0.detach(), feats_dtype)
+        f, w0 = _aligned(f32 if feats_dtype == torch.float32 else feats,
+                         w0.detach(), feats_dtype)
         bemb = pool(f, w0, b0.detach(),
                     None if w2 is None else w2.detach().to(feats_dtype),
                     None if b2 is None else b2.detach(),
                     q_max.to(feats_dtype), n_valid, model.cfg.nonlinear)[0]
         bemb = bemb[:, :feats.shape[1]]
-        return _bag_logits(model, bemb), masked_max(c_logits, mask, dim=0)
+        return model.bag_head(bemb), masked_max(c_logits, mask, dim=0)

@@ -33,7 +33,9 @@ gradients, and the parameters stay bitwise equal across ranks.
 
 The fused kernels K1-K3 are single-device and are not used here, as in the
 JAX package (``fused_threshold = None``): sharding is this path's memory
-escape hatch. The step runs in f32 like every trainer of the port.
+escape hatch. The forward runs in ``compute_dtype`` (the trainer passes
+``cfg.compute_dtype``) and casts where the JAX package's does; its
+collectives then move bf16, which gloo and NCCL both take.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ import torch
 import torch.distributed as dist
 
 from tpumil_torch.data.bags import Bag, bucket_length
-from tpumil_torch.models.dsmil import ATTN_DIM
+from tpumil_torch.models.dsmil import ATTN_DIM, in_dtype
 from tpumil_torch.ops.losses import dual_stream_loss
 from tpumil_torch.ops.masked import NEG_INF, _fill, masked_argmax, masked_max
 from tpumil_torch.parallel.mesh import INST_AXIS, axis_size
@@ -107,15 +109,16 @@ class AllReduceSum(torch.autograd.Function):
 
 
 def _local_forward(model, feats: torch.Tensor, mask: Optional[torch.Tensor],
-                   group) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   group, compute_dtype: torch.dtype = torch.float32
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Runs on each rank on its block feats [n_local, K], mask [n_local]
     (None: every row real). Returns the replicated (bag_logits [C],
-    max_instance_logits [C], bag_embedding [C, K])."""
+    max_instance_logits [C], bag_embedding [C, K]) in ``compute_dtype``."""
     disable_tf32()
-    bc = model.b_classifier
-    f = feats.float()
+    dt = compute_dtype
+    f = feats.to(dt)
     m = None if mask is None else mask[:, None]
-    c = model.i_classifier.fc(f)                                # [n, C]
+    c = model.instance_logits(f, dt)                            # [n, C]
 
     # critical instance: local masked max and first argmax per class, then
     # the first maximum across ranks of the gathered (value, row) pairs
@@ -127,34 +130,36 @@ def _local_forward(model, feats: torch.Tensor, mask: Optional[torch.Tensor],
     m_feats = cand[winner, torch.arange(winner.shape[0],
                                         device=f.device), 1:]   # [C, K]
 
-    q_max = bc.q(m_feats)                                       # [C, D]
-    q = bc.q(f)                                                 # [n, D]
-    a = (q @ q_max.T) * (1.0 / math.sqrt(ATTN_DIM))             # [n, C]
+    q_max = model.queries(m_feats, dt)                          # [C, D]
+    q = model.queries(f, dt)                                    # [n, D]
+    a = (q @ q_max.T) * in_dtype(1.0 / math.sqrt(ATTN_DIM), dt)  # [n, C]
     a = _fill(a, m, NEG_INF)
 
     # softmax over the global N: the max shift is gradient-neutral, so it
     # is taken on detached values
     global_max = collective("max", a.detach().amax(dim=0), group)
     p = _fill(torch.exp(a - global_max[None, :]), m, 0.0)
-    v = model._values(f, None)                                  # [n, K]
+    v = model._values(f, None, dt)                              # [n, K]
     sums = AllReduceSum.apply(torch.cat([p.sum(dim=0)[:, None], p.T @ v],
                                         dim=1), group)          # [C, 1 + K]
     bemb = sums[:, 1:] / sums[:, :1].clamp_min(
         torch.finfo(p.dtype).tiny)                              # [C, K]
-    bag_logits = torch.einsum("ck,dck->d", bemb, bc.fcc.weight) \
-        + bc.fcc.bias
+    bag_logits = model.bag_head(bemb, dt)
     # the max instance logit from the gathered candidates: the loss
     # gradient reaches the winning rank's row through AllGather
     return bag_logits, all_vals.amax(dim=0), bemb
 
 
-def make_instance_sharded_forward(mesh, axis: str = INST_AXIS) -> Callable:
+def make_instance_sharded_forward(mesh, axis: str = INST_AXIS,
+                                  compute_dtype: torch.dtype = torch.float32
+                                  ) -> Callable:
     """``fn(model, feats, mask) -> (bag_logits [C], max_instance_logits
-    [C], bag_embedding [C, K])``, where ``feats``/``mask`` are this rank's
-    block of the bag (:func:`shard_bag`)."""
+    [C], bag_embedding [C, K])`` in ``compute_dtype``, where
+    ``feats``/``mask`` are this rank's block of the bag
+    (:func:`shard_bag`)."""
     group = mesh.get_group(axis)
-    return lambda model, feats, mask=None: _local_forward(model, feats, mask,
-                                                          group)
+    return lambda model, feats, mask=None: _local_forward(
+        model, feats, mask, group, compute_dtype)
 
 
 def shard_bag(mesh, feats: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -196,6 +201,7 @@ def average_gradients(params: Sequence[torch.Tensor], group) -> None:
 
 def make_instance_sharded_train_step(mesh, optimizer=None,
                                      axis: str = INST_AXIS,
+                                     compute_dtype: torch.dtype = torch.float32,
                                      weight_decay: float = 1e-3):
     """The reference's per-bag Adam step (train_tcga.py:55-76) on a bag
     whose rows are split over ``mesh[axis]``.
@@ -204,7 +210,8 @@ def make_instance_sharded_train_step(mesh, optimizer=None,
     optimizer (default Adam(0.5, 0.9) with ``weight_decay``, the reference
     WSI configuration), and ``step(model, opt, feats, mask, label, lr=None,
     pw=None) -> (model, opt, loss)`` takes this rank's block
-    (:func:`shard_bag`); ``lr`` None keeps the optimizer's."""
+    (:func:`shard_bag`); ``lr`` None keeps the optimizer's. The forward runs
+    in ``compute_dtype``; the loss, the gradients and Adam in f32."""
     optimizer = optimizer or functools.partial(adam_torch,
                                                weight_decay=weight_decay)
     group = mesh.get_group(axis)
@@ -213,7 +220,8 @@ def make_instance_sharded_train_step(mesh, optimizer=None,
         if lr is not None:
             set_lr(opt, lr)
         opt.zero_grad(set_to_none=True)
-        bag_logits, max_ins, _ = _local_forward(model, feats, mask, group)
+        bag_logits, max_ins, _ = _local_forward(model, feats, mask, group,
+                                                compute_dtype)
         loss = dual_stream_loss(bag_logits, max_ins, label, pw)
         loss.backward()
         average_gradients(list(model.parameters()), group)
@@ -300,8 +308,10 @@ class InstanceShardedBagTrainer(BagTrainer):
         self._fused_eligible = False
         # every power-of-two bucket divides across the axis
         self.min_bucket = max(self.min_bucket, n)
+        # without cfg.compute_dtype a bf16 config would train f32 here
         self._inst_step, _ = make_instance_sharded_train_step(
-            self.mesh, axis=self.inst_axis)
+            self.mesh, axis=self.inst_axis,
+            compute_dtype=self.cfg.compute_dtype)
 
     def _train_bags(self, model, opt, items, fused, generator):
         """One inst-sharded Adam step per (feats, label), in order; the

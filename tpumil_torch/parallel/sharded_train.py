@@ -47,7 +47,8 @@ def make_sharded_train_step(cfg: DSMILConfig, mesh, optimizer=None,
     rank), ``labels`` [B, C]. ``real`` [B] bool gates count-padding dummy
     bags out of the objective (None: every bag is real); ``pos_weight``
     [C] weights positive targets like BCEWithLogitsLoss(pos_weight).
-    Dropout (passing_v) has no place on this path."""
+    Dropout (passing_v) has no place on this path. The forwards run in
+    ``cfg.compute_dtype``; the losses, the gradients and Adam in f32."""
     if cfg.passing_v and cfg.dropout_v > 0.0:
         raise NotImplementedError(
             "the sharded minibatch step has no dropout rng plumbing; "
@@ -72,7 +73,8 @@ def make_sharded_train_step(cfg: DSMILConfig, mesh, optimizer=None,
         local = torch.zeros((), device=labels.device)
         mine = [i for i in range(r * per, min((r + 1) * per, b)) if real[i]]
         for i in mine:
-            c, bag_logits, _, _ = net(feats[i])
+            c, bag_logits, _, _ = net(feats[i],
+                                      compute_dtype=cfg.compute_dtype)
             local = local + dual_stream_loss(
                 bag_logits, mil.max_instance_logits(c, None), labels[i],
                 pos_weight)

@@ -22,6 +22,11 @@ when feats need one, and bag features are constants here, so the kernel
 step holds K3's dz1 scratch (4 D bytes per instance) and K1's logits (4 C
 bytes per instance): 533 B per instance measured on an H100 at K = 512,
 C = 2, against 2576 B for the eager step (PERF.md section 5).
+
+``cfg.compute_dtype`` sets the dtype of every model forward (train and
+eval); parameters, gradients and Adam's moments stay f32, and the losses
+are taken in f32. The kernels compute in f32, so only an f32 config is
+routed to them.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch
 
 from tpumil_torch.data.bags import Bag, bucketed_chunks
 from tpumil_torch.data.device_store import DeviceBagStore
-from tpumil_torch.models.dsmil import DSMILConfig
+from tpumil_torch.models.dsmil import DSMILConfig, sigmoid
 from tpumil_torch.models.registry import get_model
 from tpumil_torch.ops.attention_pool import fused_bag_forward, fused_bag_loss
 from tpumil_torch.ops.losses import dual_stream_loss
@@ -49,6 +54,8 @@ HOST_BUDGET_BYTES = 13 * 2 ** 30
 # backward and Adam) and of one eager eval forward, at feats_size 512,
 # scaled linearly in K: the slope of torch.cuda.max_memory_allocated over
 # the bag size on an H100 (2576 and 1032 B, PERF.md section 5), rounded up.
+# Measured with f32 features and compute; a bf16 store or compute keeps
+# them, which over-bounds, in the safe direction.
 STEP_BYTES_PER_INSTANCE = 3 * 1024
 EVAL_BYTES_PER_INSTANCE = 3 * 512
 # Share of the card's reachable memory the estimate may fill; the rest is
@@ -120,7 +127,7 @@ class BagTrainer:
     # eager step's estimated peak (residents + working set) would not fit
     # memory_budget_bytes(); an int N for buckets of length >= N; None for
     # never. Only the reference configuration is eligible (dsmil, nonlinear
-    # q, passing_v=False, no patch dropout).
+    # q, passing_v=False, no patch dropout, f32 compute).
     fused_threshold: object = "auto"
     # other device residents the caller keeps alive (a global store whose
     # fold subsets are trained), added to the "auto" estimate
@@ -135,6 +142,7 @@ class BagTrainer:
         self._fused_eligible = (
             self.model == "dsmil" and self.cfg.nonlinear
             and not self.cfg.passing_v and self.dropout_patch == 0.0
+            and self.cfg.compute_dtype == torch.float32
             and self.fused_threshold is not None)
         self.fused_dispatches = 0  # buckets or chunks run through K1-K3
 
@@ -201,8 +209,9 @@ class BagTrainer:
                     mask = patch_dropout_mask(generator, feats.shape[0],
                                               1.0 - self.dropout_patch,
                                               self.device)
-                c, bag_logits, _, _ = model(feats, mask,
-                                            dropout_generator=generator)
+                c, bag_logits, _, _ = model(
+                    feats, mask, dropout_generator=generator,
+                    compute_dtype=self.cfg.compute_dtype)
                 loss = dual_stream_loss(
                     bag_logits, self._mil.max_instance_logits(c, mask), label,
                     pw)
@@ -230,12 +239,16 @@ class BagTrainer:
                         mask = patch_dropout_mask(
                             generator, feats.shape[0],
                             1.0 - self.dropout_patch, self.device)
-                    c, bag_logits, _, _ = model(feats, mask)
+                    c, bag_logits, _, _ = model(
+                        feats, mask, compute_dtype=self.cfg.compute_dtype)
                     max_logits = self._mil.max_instance_logits(c, mask)
                 loss = dual_stream_loss(bag_logits, max_logits, label, pw)
-                scores = torch.sigmoid(bag_logits)
-                out.append(torch.cat([loss[None], scores,
-                                      scores + torch.sigmoid(max_logits)]))
+                # in the compute dtype, as the JAX package's eval; f32 only
+                # where they are stacked
+                scores = sigmoid(bag_logits)
+                avg = scores + sigmoid(max_logits)
+                out.append(torch.cat([loss[None], scores.float(),
+                                      avg.float()]))
         res = torch.stack(out).cpu().numpy()
         c = self.cfg.num_classes
         return res[:, 0], res[:, 1:1 + c], res[:, 1 + c:]

@@ -99,24 +99,28 @@ def can_write_pyramid() -> bool:
     return bool(lib) and hasattr(lib, "ts_write_tiled_pyramid")
 
 
-def decode_batch(paths: List[str], size: int,
-                 num_threads: int = 8) -> Tuple[np.ndarray, np.ndarray]:
-    """Decode JPEGs in parallel into uint8 [N, size, size, 3]. Returns
-    (images, error codes [N]).
+def decode_batch(paths: List[str], size: int, num_threads: int = 8,
+                 as_float: bool = True,
+                 allow_resize: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """Decode JPEGs in parallel into [N, size, size, 3]. Returns (images,
+    error codes [N]): float32 in [0, 1] if ``as_float``, else uint8.
 
-    Sources whose size differs from ``size`` are not resized natively
-    (error -4): native bilinear point sampling differs from PIL's
-    resampling, so callers re-decode those through PIL."""
+    Unless ``allow_resize``, sources whose size differs from ``size`` are
+    not resized natively (error -4): native bilinear point sampling differs
+    from PIL's resampling, so callers re-decode those through PIL."""
     lib = _lib()
     num_threads = max(1, min(num_threads, os.cpu_count() or 1))
     n = len(paths)
     out = np.zeros((n, size, size, 3), np.uint8)
+    out_f = np.zeros((n, size, size, 3), np.float32) if as_float else None
     err = np.zeros((n,), np.int32)
     arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
     lib.ts_decode_batch(arr, n, size, out.ctypes.data_as(ctypes.c_void_p),
-                        None, err.ctypes.data_as(ctypes.c_void_p),
-                        num_threads, 0)
-    return out, err
+                        None if out_f is None
+                        else out_f.ctypes.data_as(ctypes.c_void_p),
+                        err.ctypes.data_as(ctypes.c_void_p), num_threads,
+                        1 if allow_resize else 0)
+    return (out if out_f is None else out_f), err
 
 
 def encode_jpeg(img: np.ndarray, path: str, quality: int = 70) -> None:
