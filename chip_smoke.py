@@ -2886,6 +2886,7 @@ def phase_scale_out_embed(gpu: str, cf: dict) -> dict:
     from tpumil_torch.parallel import mesh
     from tpumil_torch.train.simclr_trainer import (SimCLRTrainConfig,
                                                    SimCLRTrainer)
+    from tpumil_torch.utils import prof
 
     dev = torch.device("cuda")
     tmp = cf["tmp"]
@@ -2923,15 +2924,20 @@ def phase_scale_out_embed(gpu: str, cf: dict) -> dict:
                               single.embed_arrays(odd)):
             raise AssertionError("embed_arrays of 37 rows: sharded != single")
         batch = rng.integers(0, 256, (B, 224, 224, 3), np.uint8)
-        mesh.feed_collective.seconds = 0.0
-        mesh.feed_collective.calls = 0
-        mesh.feed_collective.by_op = {}
-        t = [_batch_ms(single, batch), _batch_ms(sharded, batch),
-             _batch_ms(sharded, batch), _batch_ms(single, batch)]
-        batches = mesh.feed_collective.calls / 3
-        coll_ms = mesh.feed_collective.seconds / batches * 1e3
-        by_op = ", ".join(f"{name} {sec / n * 1e3:.3f}" for name, (n, sec)
-                          in mesh.feed_collective.by_op.items())
+        prof.collect()
+        with prof.recording():
+            t = [_batch_ms(single, batch), _batch_ms(sharded, batch),
+                 _batch_ms(sharded, batch), _batch_ms(single, batch)]
+        by_name = {}  # mesh.<collective> -> [calls, ns]
+        for sp in prof.collect():
+            if sp.name.startswith("mesh."):
+                by = by_name.setdefault(sp.name[5:], [0, 0])
+                by[0] += 1
+                by[1] += sp.end_ns - sp.start_ns
+        batches = sum(n for n, _ in by_name.values()) / 3
+        coll_ms = sum(ns for _, ns in by_name.values()) / batches / 1e6
+        by_op = ", ".join(f"{name} {ns / n / 1e6:.3f}" for name, (n, ns)
+                          in by_name.items())
         log(f"[scale_out_embed] FeatureExtractor(mesh) at world 1 (nccl): "
             f"embed_paths of {2 * B} JPEGs (2 batches of {B}, 224^2, f32) "
             f"bitwise the single-device features, embed_arrays of 37 rows "

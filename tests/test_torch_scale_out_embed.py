@@ -219,6 +219,10 @@ def test_feature_extractor_sharded(world):
     # a header, a scatter and a gather per batch (2 + 1 + 4 batches), and
     # the "stop"
     assert world["port"]["feed_calls"] == 3 * 7 + 1
+    # each recorded as a span of the recorder, by collective
+    assert world["port"]["feed_spans"] == {"mesh.broadcast": 7 + 1,
+                                           "mesh.scatter": 7,
+                                           "mesh.gather": 7}
 
 
 def test_bag_inference_sharded(world):

@@ -119,7 +119,8 @@ def test_cli_refusals(tmp_path, monkeypatch):
 
 def test_prof_scalars_meter_and_trace_match_jax(tmp_path, monkeypatch):
     """utils/prof.py: ScalarLogger writes the JAX package's JSONL records,
-    ThroughputMeter counts as its does, and trace writes a Chrome trace."""
+    ThroughputMeter counts as its does, and trace writes a Chrome trace
+    with the spans recorded in it."""
     import json
 
     from tpumil.utils import prof as jprof
@@ -144,6 +145,14 @@ def test_prof_scalars_meter_and_trace_match_jax(tmp_path, monkeypatch):
     assert meter.total == 40 and meter.rate > 0 and "patches/s" in str(meter)
     assert len(meter._events) == 3  # the window
     with prof.trace(str(tmp_path / "trace")):
-        torch.ones(4).sum()
+        with prof.span("outer"):
+            torch.ones(4).sum()
     with open(tmp_path / "trace" / prof.TRACE_FILE) as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    # the span, as a complete event around the profiler's op (to 20 µs)
+    spans = [e for e in events if e.get("cat") == "span"]
+    assert [(e["name"], e["ph"]) for e in spans] == [("outer", "X")]
+    op = next(e for e in events if e.get("name") == "aten::sum")
+    assert spans[0]["ts"] - 20 <= op["ts"] \
+        and op["ts"] + op["dur"] <= spans[0]["ts"] + spans[0]["dur"] + 20
+    assert prof.span("after") is prof.span("off")  # the recorder is off

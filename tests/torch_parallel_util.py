@@ -15,6 +15,7 @@ Several checks share one world: each spawn costs a few seconds.
 
 from __future__ import annotations
 
+import collections
 import datetime
 import os
 import signal
@@ -542,6 +543,7 @@ def embed_world(inputs_path: str, tmp: str):
     from tpumil_torch.infer.heatmap import BagInference
     from tpumil_torch.infer.service import InferenceService
     from tpumil_torch.parallel import mesh
+    from tpumil_torch.utils import prof
 
     inputs = torch.load(inputs_path, weights_only=False)
     m = mesh.data_parallel_mesh(mesh.world_size(), device_type="cpu")
@@ -552,11 +554,15 @@ def embed_world(inputs_path: str, tmp: str):
                         patch_size=EMBED_PATCH, num_workers=2, model=model,
                         mesh=m)
     mesh.feed_collective.calls = 0
-    out["embedded"] = mesh.lead(m, lambda: {
-        "paths": ex.embed_paths(inputs["paths"]),
-        "arrays": ex.embed_arrays(inputs["arrays"]),
-        "bag": bags.run_bag(inputs["bag"])})
+    prof.collect()
+    with prof.recording():
+        out["embedded"] = mesh.lead(m, lambda: {
+            "paths": ex.embed_paths(inputs["paths"]),
+            "arrays": ex.embed_arrays(inputs["arrays"]),
+            "bag": bags.run_bag(inputs["bag"])})
     out["feed_calls"] = mesh.feed_collective.calls
+    out["feed_spans"] = dict(collections.Counter(
+        s.name for s in prof.collect() if s.name.startswith("mesh.")))
     svc = InferenceService(emb, CPU, batch_size=EMBED_BATCH,
                            patch_size=EMBED_PATCH, max_wait_ms=5.0, mesh=m)
     if mesh.is_main():

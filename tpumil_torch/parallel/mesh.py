@@ -46,6 +46,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from tpumil_torch.utils.prof import span
+
 DATA_AXIS = "data"
 INST_AXIS = "inst"
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -352,22 +354,15 @@ def data_parallel(n: Optional[int], what: str = "extraction",
 
 
 def feed_collective(op: Callable, *args, **kwargs) -> None:
-    """Every collective of the feed, counted, with the host seconds spent
-    in the call (NCCL returns once the work is queued; gloo once it is
-    done), in all and by collective."""
-    t0 = time.perf_counter()
-    op(*args, **kwargs)
-    dt = time.perf_counter() - t0
-    feed_collective.seconds += dt
+    """Every collective of the feed, counted, and recorded as span
+    ``mesh.<collective>`` (utils/prof.py): the host time in the call (NCCL
+    returns once the work is queued; gloo once it is done)."""
+    with span(f"mesh.{op.__name__}"):
+        op(*args, **kwargs)
     feed_collective.calls += 1
-    by = feed_collective.by_op.setdefault(op.__name__, [0, 0.0])
-    by[0] += 1
-    by[1] += dt
 
 
 feed_collective.calls = 0
-feed_collective.seconds = 0.0
-feed_collective.by_op = {}  # name -> [calls, seconds]
 
 
 def _comm_device() -> torch.device:

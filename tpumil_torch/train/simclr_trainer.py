@@ -68,6 +68,7 @@ from tpumil_torch.ops.nt_xent import l2_normalize, nt_xent_loss
 from tpumil_torch.parallel import mesh as pmesh
 from tpumil_torch.train.optim import adam_torch, cosine_annealing_lr, set_lr
 from tpumil_torch.utils.device import select_device
+from tpumil_torch.utils.prof import span
 
 
 @dataclasses.dataclass
@@ -150,8 +151,10 @@ class SimCLRTrainer:
         cfg = self.cfg
         if images.dtype != torch.uint8:
             raise TypeError(f"images must be uint8, got {images.dtype}")
-        v1, v2 = augment_pair_batch(images.float() / 255, u, cfg.input_size,
-                                    self.model_cfg.compute_dtype, cfg.s)
+        with span("simclr.augment"):
+            v1, v2 = augment_pair_batch(images.float() / 255, u,
+                                        cfg.input_size,
+                                        self.model_cfg.compute_dtype, cfg.s)
         if cfg.remat:
             def fwd(v):
                 return checkpoint(model, v, use_reentrant=False)
@@ -195,29 +198,38 @@ class SimCLRTrainer:
         """One optimizer step on one batch (with a mesh, this rank's rows
         of it and of its uniforms); returns the loss (a 0-d device tensor,
         no host sync)."""
-        set_lr(opt, lr)
-        opt.zero_grad(set_to_none=True)
-        mb = self._microbatch
-        if mb is None:
-            loss = self.loss_from_z(*self._whole_batch(
-                *self.encode(model, u, images)))
-            loss.backward()
-        else:
-            z1, z2 = self._encode_microbatches(model, u, images, mb)
-            z1.requires_grad_()
-            z2.requires_grad_()
-            loss = self.loss_from_z(*self._whole_batch(z1, z2))
-            dz1, dz2 = torch.autograd.grad(loss, (z1, z2))
-            for i in range(0, images.shape[0], mb):
-                s = slice(i, i + mb)
-                torch.autograd.backward(
-                    self.encode(model, u[:, s], images[s]), (dz1[s], dz2[s]))
-        if self.mesh is not None:
-            from tpumil_torch.parallel.bag_shard import average_gradients
+        with span("simclr.step"):
+            set_lr(opt, lr)
+            opt.zero_grad(set_to_none=True)
+            mb = self._microbatch
+            if mb is None:
+                with span("simclr.embed"):
+                    z = self.encode(model, u, images)
+                with span("simclr.loss"):
+                    loss = self.loss_from_z(*self._whole_batch(*z))
+                with span("simclr.backward"):
+                    loss.backward()
+            else:
+                with span("simclr.embed"):
+                    z1, z2 = self._encode_microbatches(model, u, images, mb)
+                with span("simclr.loss"):
+                    z1.requires_grad_()
+                    z2.requires_grad_()
+                    loss = self.loss_from_z(*self._whole_batch(z1, z2))
+                    dz1, dz2 = torch.autograd.grad(loss, (z1, z2))
+                with span("simclr.backward"):
+                    for i in range(0, images.shape[0], mb):
+                        s = slice(i, i + mb)
+                        torch.autograd.backward(
+                            self.encode(model, u[:, s], images[s]),
+                            (dz1[s], dz2[s]))
+            if self.mesh is not None:
+                from tpumil_torch.parallel.bag_shard import average_gradients
 
-            average_gradients(list(model.parameters()), None)
-        opt.step()
-        return loss.detach()
+                average_gradients(list(model.parameters()), None)
+            with span("simclr.optim"):
+                opt.step()
+            return loss.detach()
 
     @torch.no_grad()
     def eval_step(self, model: SimCLR, u: torch.Tensor,

@@ -45,6 +45,7 @@ from tpumil_torch.ops.attention_pool import fused_bag_forward, fused_bag_loss
 from tpumil_torch.ops.losses import dual_stream_loss
 from tpumil_torch.train.optim import adam_torch, set_lr
 from tpumil_torch.utils.device import select_device
+from tpumil_torch.utils.prof import span
 
 # -- giant-bag memory model ---------------------------------------------------
 # Memory the "auto" route may plan for on the CPU: the JAX package's 13 GiB
@@ -173,6 +174,10 @@ class BagTrainer:
         self.fused_dispatches += int(fused)
         return fused
 
+    def _train_route(self, nmax: int, bucket_bytes: int) -> bool:
+        with span("train.route"):  # "auto" asks the card for its memory
+            return self._route(self._use_fused(nmax, bucket_bytes))
+
     # -- steps ---------------------------------------------------------------
 
     def _pw(self) -> Optional[torch.Tensor]:
@@ -200,26 +205,31 @@ class BagTrainer:
         pw = self._pw()
         total = torch.zeros((), device=self.device)
         for feats, label in items:
-            opt.zero_grad(set_to_none=True)
-            if fused:
-                loss = fused_bag_loss(model, feats, label, pw)
-            else:
-                mask = None
-                if self.dropout_patch > 0.0:
-                    mask = patch_dropout_mask(generator, feats.shape[0],
-                                              1.0 - self.dropout_patch,
-                                              self.device)
-                c, bag_logits, _, _ = model(
-                    feats, mask, dropout_generator=generator,
-                    compute_dtype=self.cfg.compute_dtype)
-                loss = dual_stream_loss(
-                    bag_logits, self._mil.max_instance_logits(c, mask), label,
-                    pw)
-            loss.backward()
-            opt.step()
+            with span("train.step"):
+                opt.zero_grad(set_to_none=True)
+                with span("train.forward"):
+                    loss = self._bag_loss(model, feats, label, pw, fused,
+                                          generator)
+                with span("train.backward"):
+                    loss.backward()
+                with span("train.optim"):
+                    opt.step()
             total = total + loss.detach()
         model.eval()
         return total
+
+    def _bag_loss(self, model, feats, label, pw, fused: bool,
+                  generator: torch.Generator) -> torch.Tensor:
+        if fused:
+            return fused_bag_loss(model, feats, label, pw)
+        mask = None
+        if self.dropout_patch > 0.0:
+            mask = patch_dropout_mask(generator, feats.shape[0],
+                                      1.0 - self.dropout_patch, self.device)
+        c, bag_logits, _, _ = model(feats, mask, dropout_generator=generator,
+                                    compute_dtype=self.cfg.compute_dtype)
+        return dual_stream_loss(
+            bag_logits, self._mil.max_instance_logits(c, mask), label, pw)
 
     def _eval_bags(self, model: torch.nn.Module,
                    items: Sequence[Tuple[torch.Tensor, torch.Tensor]],
@@ -262,21 +272,23 @@ class BagTrainer:
         """One epoch of per-bag steps; ``bags`` is a Sequence[Bag] (features
         moved per chunk) or a DeviceBagStore. Returns (model, optimizer,
         mean loss)."""
-        if isinstance(bags, DeviceBagStore):
-            losses = self._store_epoch(model, opt, bags, lr, rng, shuffle)
-            return model, opt, _mean(losses, bags.num_bags)
-        set_lr(opt, lr)
-        order = rng.permutation(len(bags)) if shuffle \
-            else np.arange(len(bags))
-        losses = []
-        for idxs, nmax in bucketed_chunks(bags, order, self.chunk_size,
-                                          self.min_bucket):
-            generator = self._generator(int(rng.integers(1 << 62)))
-            items = self._host_items(bags, idxs)
-            fused = self._route(self._use_fused(nmax, _nbytes(items)))
-            losses.append(self._train_bags(model, opt, items, fused,
-                                           generator))
-        return model, opt, _mean(losses, len(bags))
+        with span("train.epoch"):
+            if isinstance(bags, DeviceBagStore):
+                losses = self._store_epoch(model, opt, bags, lr, rng, shuffle)
+                return model, opt, _mean(losses, bags.num_bags)
+            set_lr(opt, lr)
+            order = rng.permutation(len(bags)) if shuffle \
+                else np.arange(len(bags))
+            losses = []
+            for idxs, nmax in bucketed_chunks(bags, order, self.chunk_size,
+                                              self.min_bucket):
+                with span("train.bucket"):
+                    generator = self._generator(int(rng.integers(1 << 62)))
+                    items = self._host_items(bags, idxs)
+                    fused = self._train_route(nmax, _nbytes(items))
+                    losses.append(self._train_bags(model, opt, items, fused,
+                                                   generator))
+            return model, opt, _mean(losses, len(bags))
 
     def _host_items(self, bags: Sequence[Bag], idxs):
         return [(_as_tensor(bags[i].feats, self.device),
@@ -299,13 +311,16 @@ class BagTrainer:
             rng.shuffle(sizes)
         losses = []
         for nmax in sizes:
-            n_real = store.counts[nmax]
-            perm = rng.permutation(n_real) if shuffle else np.arange(n_real)
-            generator = self._generator(int(rng.integers(1 << 62)))
-            fused = self._route(self._use_fused(nmax, store.nbytes()))
-            rows = store.index[nmax][perm]
-            losses.append(self._train_bags(
-                model, opt, self._store_items(store, rows), fused, generator))
+            with span("train.bucket"):
+                n_real = store.counts[nmax]
+                perm = rng.permutation(n_real) if shuffle \
+                    else np.arange(n_real)
+                generator = self._generator(int(rng.integers(1 << 62)))
+                fused = self._train_route(nmax, store.nbytes())
+                rows = store.index[nmax][perm]
+                losses.append(self._train_bags(
+                    model, opt, self._store_items(store, rows), fused,
+                    generator))
         return losses
 
     def train_epochs(self, model: torch.nn.Module, opt: torch.optim.Optimizer,
@@ -317,24 +332,27 @@ class BagTrainer:
         then ONE integer for every epoch's dropout stream; otherwise epoch
         by epoch, as ``train_epoch``."""
         e = len(lrs)
-        if len(store.bucket_sizes) == 1:
-            nmax = store.bucket_sizes[0]
-            perms = [rng.permutation(store.counts[nmax]) for _ in range(e)]
-            generator = self._generator(int(rng.integers(1 << 62)))
-            fused = self._route(self._use_fused(nmax, store.nbytes()))
-            losses = []
-            for perm, lr in zip(perms, lrs):
-                set_lr(opt, lr)
-                rows = store.index[nmax][perm]
-                losses.append(self._train_bags(
-                    model, opt, self._store_items(store, rows), fused,
-                    generator))
-            per_epoch = [[x] for x in losses]
-        else:
-            per_epoch = [self._store_epoch(model, opt, store, lr, rng)
-                         for lr in lrs]
-        return model, opt, np.asarray([_mean(ls, store.num_bags)
-                                       for ls in per_epoch], np.float64)
+        with span("train.epoch"):
+            if len(store.bucket_sizes) == 1:
+                nmax = store.bucket_sizes[0]
+                perms = [rng.permutation(store.counts[nmax])
+                         for _ in range(e)]
+                generator = self._generator(int(rng.integers(1 << 62)))
+                fused = self._train_route(nmax, store.nbytes())
+                losses = []
+                for perm, lr in zip(perms, lrs):
+                    with span("train.bucket"):
+                        set_lr(opt, lr)
+                        rows = store.index[nmax][perm]
+                        losses.append(self._train_bags(
+                            model, opt, self._store_items(store, rows), fused,
+                            generator))
+                per_epoch = [[x] for x in losses]
+            else:
+                per_epoch = [self._store_epoch(model, opt, store, lr, rng)
+                             for lr in lrs]
+            return model, opt, np.asarray([_mean(ls, store.num_bags)
+                                           for ls in per_epoch], np.float64)
 
     def predict(self, model: torch.nn.Module, bags, *, average: bool = False,
                 rng: Optional[np.random.Generator] = None,
@@ -378,4 +396,5 @@ def _mean(losses: List[torch.Tensor], n: int) -> float:
     """Sum of per-bucket device loss sums over ``n`` bags (one host sync)."""
     if not losses:
         return 0.0
-    return float(torch.stack(losses).double().sum()) / max(n, 1)
+    with span("train.sync"):
+        return float(torch.stack(losses).double().sum()) / max(n, 1)
