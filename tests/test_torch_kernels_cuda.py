@@ -752,3 +752,78 @@ def test_simclr_step_trains_conv1_on_card(card, dtype):
     assert not torch.equal(model.backbone.conv1.weight, before)
     assert (fused_instance_norm.launches - k4, fused_stem.launches - k5) == \
         (0, 0)
+
+
+COPY_KERNELS = ("copy_kernel", "transpose", "Transpose")
+CUDNN_TRANSFORMS = ("nhwcToNchw", "nchwToNhwc")
+
+
+def _kernel_ns(step):
+    """{kernel name: device ns} of one call of ``step`` under
+    torch.profiler, after a call outside the trace (cuDNN's plans, the
+    allocator's blocks)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    ns = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA") \
+                and not e.name().startswith(("Memcpy", "Memset")) \
+                and not (hasattr(e, "is_user_annotation")
+                         and e.is_user_annotation()):
+            ns[e.name()] = ns.get(e.name(), 0) + e.duration_ns()
+    return ns
+
+
+def _share(ns, keys):
+    return sum(v for k, v in ns.items() if any(c in k for c in keys)) \
+        / sum(ns.values())
+
+
+@pytest.mark.cuda
+def test_trainable_f32_resnet_runs_without_layout_copies(card, monkeypatch):
+    """A trainable f32 ResNet18-IN forward and backward at 224^2, batch 8,
+    under torch.profiler. Copies stay the 3-channel input's, each kernel's
+    NCHW copy and its gradient's copy back; cuDNN's transforms stay those
+    of the NHWC weight-gradient engine its heuristics pick for some of the
+    stride-2 convs into the last two stages. The same weights with
+    channels_last convs (the layout before the route went NCHW: conv
+    outputs NHWC, copied to NCHW inside F.instance_norm and back in its
+    backward) are the control that the kernel names see layout copies."""
+    import torch.nn.functional as F
+
+    from tpumil_torch.models import resnet
+    from tpumil_torch.models.simclr import SimCLRConfig, init_model
+
+    backbone = init_model(0, SimCLRConfig(compute_dtype=torch.float32),
+                          card).backbone
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.rand(8, 224, 224, 3, device=card, generator=gen)
+
+    def step():
+        backbone.zero_grad(set_to_none=True)
+        backbone(x).square().sum().backward()
+
+    route = _kernel_ns(step)
+
+    class ChannelsLastConvs:
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        def conv2d(self, x, w, *args, **kwargs):
+            cl = torch.channels_last
+            return F.conv2d(x.contiguous(memory_format=cl),
+                            w.contiguous(memory_format=cl), *args, **kwargs)
+
+    monkeypatch.setattr(resnet, "F", ChannelsLastConvs())
+    channels_last = _kernel_ns(step)
+    control = _share(channels_last, COPY_KERNELS + CUDNN_TRANSFORMS)
+    copies = _share(route, COPY_KERNELS)
+    transforms = _share(route, CUDNN_TRANSFORMS)
+    assert control > 0.1, control
+    assert copies + transforms < 0.05 and transforms < 0.01, \
+        (copies, transforms, control)

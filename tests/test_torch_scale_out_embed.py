@@ -36,6 +36,8 @@ from tpumil.infer import features as jfeatures
 from tpumil.infer import heatmap as jheat
 from tpumil.io import torch_ckpt as jckpt
 from tpumil.models import embedder as jemb
+from tpumil.models import resnet as jresnet
+from tpumil.models import simclr as jsimclr
 from tpumil.models.simclr import SimCLRConfig as JSimCLRConfig
 from tpumil.ops.augment import pair_keys
 from tpumil.parallel.mesh import make_mesh
@@ -45,7 +47,7 @@ from tpumil_torch.infer.features import FeatureExtractor
 from tpumil_torch.infer.heatmap import BagInference
 from tpumil_torch.infer.service import InferenceService
 from tpumil_torch.io import from_jax
-from tpumil_torch.models import embedder, simclr
+from tpumil_torch.models import embedder, resnet, simclr
 from tpumil_torch.models.simclr import SimCLRConfig
 from tpumil_torch.train.simclr_trainer import SimCLRTrainConfig, SimCLRTrainer
 from tpumil_torch.utils import prof
@@ -57,10 +59,17 @@ CFG32 = SimCLRConfig(compute_dtype=torch.float32)
 SHARDED = dict(rtol=1e-5, atol=1e-5)   # sharded vs single-device, the port
 PORT_JAX = dict(rtol=1e-4, atol=1e-4)  # the port vs JAX (their forwards)
 # the SimCLR gradient, relative L2 distance per tensor: against JAX's,
-# test_torch_simclr_trainer.py's bar (1.4e-2 here); against the port's
-# single-device step, the same weights and views summed over two ranks in
-# another order (2.0e-6 here)
+# test_torch_simclr_trainer.py's bar, through JAX's ReLU decisions (1.7e-3
+# here; one decision taken the other way moves it by ~2e-2); against the
+# port's single-device step, the same weights and views summed over two
+# ranks in another order (2.0e-6 here)
 GRAD_RL2_JAX, GRAD_RL2_PORT = 2e-2, 1e-4
+# The ReLUs of the two steps' f32 forwards may decide a unit differently
+# only where its pre-activation lies within this of 0 in both. Against a
+# float64 step of the same weights and views, JAX's pre-activations at the
+# units decided the other way lie up to 8.7e-5 off (at layer4, whose
+# instance norm runs over 2x2 planes), the port's up to 3.4e-6.
+RELU_KINK = 2e-4
 # one epoch of two steps, the state saved after the first
 RESUME_CFG = SimCLRTrainConfig(batch_size=4, epochs=1, input_size=48, lr=1e-3,
                                num_workers=2, log_every_n_steps=100,
@@ -94,9 +103,41 @@ def _jpegs(folder, n, size, seed, ext="jpg"):
     return sorted(out)
 
 
+class _Proxy:
+    """``module`` with the attributes ``replaced``."""
+
+    def __init__(self, module, **replaced):
+        self._module = module
+        self.__dict__.update(replaced)
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+class _JaxReluInputs:
+    """``self.jax``: ``jax`` as tpumil/models/{resnet,simclr}.py see it,
+    whose ``nn.relu`` also hands its input, once the step runs, to
+    ``values`` under the index of its call while the step is traced: a
+    view's 17 backbone ReLUs and its head's, then the other view's (the
+    port's order)."""
+
+    def __init__(self):
+        self.values = {}
+        self._calls = 0
+        self.jax = _Proxy(jax, nn=_Proxy(jax.nn, relu=self._relu))
+
+    def _relu(self, x):
+        i, self._calls = self._calls, self._calls + 1
+        jax.debug.callback(
+            lambda v: self.values.__setitem__(i, np.array(v)), x)
+        return jax.nn.relu(x)
+
+
 def _jax_simclr_step(images, key):
     """JAX's sharded SGD step over a 2-device mesh at batch 8, 64^2, f32:
-    (weights before, loss, the gradient read off a step of lr 1)."""
+    (weights before, loss, the gradient read off a step of lr 1, the input
+    of each ReLU in call order)."""
+    relu_inputs = _JaxReluInputs()
     tr = jtrainer.SimCLRTrainer(
         JSimCLRConfig(compute_dtype=jnp.float32),
         jtrainer.SimCLRTrainConfig(batch_size=images.shape[0],
@@ -107,11 +148,17 @@ def _jax_simclr_step(images, key):
     before = from_jax.simclr_state_dict(jax.tree.map(np.asarray, params),
                                         CFG32)
     x = jnp.asarray(images.astype(np.float32) / 255.0)
-    unit, _, loss = tr._train_step(params, (), key, x,
-                                   jnp.asarray(1.0, jnp.float32))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jresnet, "jax", relu_inputs.jax)
+        mp.setattr(jsimclr, "jax", relu_inputs.jax)
+        unit, _, loss = tr._train_step(params, (), key, x,
+                                       jnp.asarray(1.0, jnp.float32))
     after = from_jax.simclr_state_dict(jax.tree.map(np.asarray, unit), CFG32)
+    jax.effects_barrier()
+    assert sorted(relu_inputs.values) == list(range(36))
     return before, float(loss), {k: before[k].double() - after[k].double()
-                                 for k in before}
+                                 for k in before}, \
+        [relu_inputs.values[i] for i in range(36)]
 
 
 @pytest.fixture(scope="module")
@@ -149,7 +196,7 @@ def world(tmp_path_factory):
     views = np.random.default_rng(4).integers(
         0, 256, (EMBED_BATCH, EMBED_PATCH, EMBED_PATCH, 3), np.uint8)
     key = jax.random.PRNGKey(11)
-    before, loss, grad = _jax_simclr_step(views, key)
+    before, loss, grad, relu_inputs = _jax_simclr_step(views, key)
     uniforms = pair_uniforms(*pair_keys(key, EMBED_BATCH))
 
     inputs = str(tmp / "inputs.pt")
@@ -162,15 +209,12 @@ def world(tmp_path_factory):
                                str(tmp / "run"), tmp=tmp / "spawn",
                                timeout=240.0)
     return {"tmp": tmp, "inputs": torch.load(inputs, weights_only=False),
-            "jax": jax_out, "jax_step": (loss, grad), "port": ranks[0],
+            "jax": jax_out, "jax_step": (loss, grad),
+            "jax_relu_inputs": relu_inputs, "port": ranks[0],
             "followers": ranks[1:]}
 
 
-@pytest.fixture(scope="module")
-def single_step(world):
-    """The port's single-device SGD step on the world's SimCLR inputs:
-    (loss, the gradient)."""
-    inputs = world["inputs"]
+def _single_step(inputs):
     tr = SimCLRTrainer(CFG32, SimCLRTrainConfig(
         batch_size=EMBED_BATCH, input_size=EMBED_PATCH, lr=1e-3), device=CPU)
     model = simclr.SimCLR(CFG32, CPU)
@@ -180,6 +224,52 @@ def single_step(world):
                          torch.from_numpy(inputs["views"]), 1e-3)
     return float(loss), {k: p.grad.double()
                          for k, p in model.named_parameters()}
+
+
+@pytest.fixture(scope="module")
+def single_step(world):
+    """The port's single-device SGD step on the world's SimCLR inputs:
+    (loss, the gradient)."""
+    return _single_step(world["inputs"])
+
+
+class _ReluAs:
+    """``torch`` as tpumil_torch/models/{resnet,simclr}.py see it, whose
+    relu passes the units that another step's ReLU passed at the same call
+    (``inputs``, its ReLUs' inputs in call order, NHWC), and records each
+    unit decided the other way: (this step's input, the other's)."""
+
+    def __init__(self, inputs):
+        self.inputs = list(inputs)
+        self.differ = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def relu(self, x):
+        other = torch.from_numpy(self.inputs.pop(0))
+        if other.dim() == 4:
+            other = other.permute(0, 3, 1, 2)
+        # in x's memory format, which the output keeps
+        passed = torch.empty_like(x, dtype=torch.bool).copy_(other > 0)
+        flipped = passed != (x > 0)
+        self.differ += list(zip(x.detach()[flipped].tolist(),
+                                other[flipped].tolist()))
+        return torch.where(passed, x, 0.0)
+
+
+@pytest.fixture(scope="module")
+def single_step_at_jax_relus(world):
+    """The port's single-device SGD step on the world's SimCLR inputs with
+    every ReLU passing the units JAX's step passed: (the units decided the
+    other way, as (the port's input, JAX's), and the gradient)."""
+    relu = _ReluAs(world["jax_relu_inputs"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(resnet, "torch", relu)
+        mp.setattr(simclr, "torch", relu)
+        _, grad = _single_step(world["inputs"])
+    assert not relu.inputs  # every ReLU of the step replayed one of JAX's
+    return relu.differ, grad
 
 
 def test_refusals(world):
@@ -260,11 +350,16 @@ def test_service_sharded(world):
 
 
 @pytest.mark.parametrize("mb", [None, 4])
-def test_simclr_sharded_step(world, single_step, mb):
+def test_simclr_sharded_step(world, single_step, single_step_at_jax_relus,
+                             mb):
     """One monolithic and one grad-cache SGD step over the world of 2: the
-    loss within rtol 1e-4 of JAX's sharded step, the gradient within the
-    port-vs-JAX bar of JAX's and near the port's single-device step's, the
-    parameters equal on both ranks."""
+    loss within rtol 1e-4 of JAX's sharded step, the gradient near the
+    port's single-device step's, the parameters equal on both ranks; and
+    the single-device step within the port-vs-JAX bar of JAX's gradient
+    through JAX's ReLU decisions, which differ from the port's only within
+    rounding of the kink. (A unit decided the other way passes or stops
+    its whole gradient: on these views JAX's f32 forward and a float64
+    step decide 6 units differently, and the port's f32 forward none.)"""
     loss, grads, gap = world["port"]["steps"][mb]
     jax_loss, jax_grad = world["jax_step"]
     np.testing.assert_allclose(loss, jax_loss, rtol=1e-4)
@@ -272,11 +367,14 @@ def test_simclr_sharded_step(world, single_step, mb):
     assert all(f["gaps"] == [0.0, 0.0] for f in world["followers"])
     single_loss, single_grad = single_step
     np.testing.assert_allclose(loss, single_loss, rtol=1e-5)
-    assert grads.keys() == single_grad.keys()
+    differ, at_jax_relus = single_step_at_jax_relus
+    assert all(abs(p) <= RELU_KINK and abs(j) <= RELU_KINK
+               for p, j in differ), differ
+    assert grads.keys() == single_grad.keys() == at_jax_relus.keys()
     for k, g in grads.items():
-        g, w, s = g.double(), jax_grad[k], single_grad[k]
+        g, w, s, a = g.double(), jax_grad[k], single_grad[k], at_jax_relus[k]
         assert torch.isfinite(g).all() and g.abs().max() > 0, k
-        assert ((g - w).norm() / w.norm()).item() <= GRAD_RL2_JAX, k
+        assert ((a - w).norm() / w.norm()).item() <= GRAD_RL2_JAX, k
         assert ((g - s).norm() / s.norm()).item() <= GRAD_RL2_PORT, k
 
 

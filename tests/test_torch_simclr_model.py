@@ -1,8 +1,9 @@
 """The port's SimCLR models against the JAX package's (tpumil_torch/models/
 {simclr,baseline_encoder}.py against tpumil/models/), carried through
 tpumil_torch/io/from_jax.py, f32, rtol 1e-4 / atol 1e-4; the SimCLR
-checkpoint layout; and the differentiable route: a trainable ResNet calls
-neither K4 nor K5, whose wrappers refuse a gradient.
+checkpoint layout; the differentiable route: a trainable ResNet calls
+neither K4 nor K5, whose wrappers refuse a gradient; and the memory format
+each route hands F.conv2d and F.instance_norm.
 """
 
 import collections
@@ -205,3 +206,129 @@ def test_trainable_resnet_takes_the_differentiable_route(kernel_calls):
     with torch.no_grad():
         model(x2)
     assert (kernel_calls["k4"], kernel_calls["k5"]) == (19, 1)
+
+
+CL = torch.channels_last
+
+
+def _nhwc(t):
+    """channels_last memory and not NCHW-contiguous (a 1x1 kernel is both)"""
+    return t.is_contiguous(memory_format=CL) and not t.is_contiguous()
+
+
+class _FunctionalSpy:
+    """torch.nn.functional as models/resnet.py sees it: records what
+    F.conv2d, F.instance_norm and F.max_pool2d receive. With
+    ``channels_last`` it hands F.conv2d its input and weight in
+    channels_last memory, the layout the trainable f32 route ran in before
+    it went NCHW (conv outputs channels_last, copied to NCHW inside
+    F.instance_norm)."""
+
+    def __init__(self, channels_last=False):
+        self.channels_last = channels_last
+        self.convs, self.norms, self.pools = [], [], []
+
+    def __getattr__(self, name):
+        return getattr(torch.nn.functional, name)
+
+    def conv2d(self, x, w, *args, **kwargs):
+        if self.channels_last:
+            x = x.contiguous(memory_format=CL)
+            w = w.contiguous(memory_format=CL)
+        out = torch.nn.functional.conv2d(x, w, *args, **kwargs)
+        self.convs.append((x, w, out))
+        return out
+
+    def instance_norm(self, x, *args, **kwargs):
+        self.norms.append(x)
+        return torch.nn.functional.instance_norm(x, *args, **kwargs)
+
+    def max_pool2d(self, x, *args, **kwargs):
+        out = torch.nn.functional.max_pool2d(x, *args, **kwargs)
+        self.pools.append((x, out))
+        return out
+
+
+class _ReluMasks:
+    """torch as models/resnet.py sees it, whose relu records which units
+    pass (``replay`` False) or passes the recorded ones (``replay`` True).
+    A second run that replays the first's masks passes its gradient through
+    the same units: an activation within rounding of 0 cannot land on the
+    other side of a ReLU kink, where it would pass or stop its whole
+    gradient, and rounding alone separates the two runs."""
+
+    def __init__(self):
+        self.masks, self.replay = [], False
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def relu(self, x):
+        if self.replay:
+            return torch.where(self.masks.pop(0), x, 0.0)
+        self.masks.append(x > 0)
+        return torch.relu(x)
+
+
+def _features_and_conv1_grad(backbone, x):
+    backbone.zero_grad(set_to_none=True)
+    h = backbone(x)
+    weights = torch.linspace(-1, 1, h.numel()).reshape(h.shape)
+    (h * weights).sum().backward()
+    return h.detach(), backbone.conv1.weight.grad.clone()
+
+
+@pytest.mark.parametrize("case", ["trainable_f32", "trainable_bf16",
+                                  "frozen_f32"])
+def test_resnet_memory_format_follows_route_and_dtype(case, kernel_calls,
+                                                      monkeypatch):
+    """ResNet18-IN at 224^2, as F.conv2d and F.instance_norm see it from
+    models/resnet.py. A trainable f32 net hands all 20 convs and all 20 IN
+    sites NCHW-contiguous tensors, kernels included, and its features and
+    conv1 gradient match the channels_last run of the same weights. A
+    trainable bf16 net keeps channels_last kernels and conv outputs. The
+    same f32 weights frozen run K5 and 19 K4 sites on NHWC views (the conv
+    outputs' permutes), and hand the convs the stored kernels themselves."""
+    dtype = torch.bfloat16 if case == "trainable_bf16" else torch.float32
+    backbone = simclr.init_model(0, simclr.SimCLRConfig(compute_dtype=dtype),
+                                 CPU).backbone
+    x = torch.from_numpy(_images(2, 224, seed=5))
+    spy = _FunctionalSpy()
+    monkeypatch.setattr(resnet, "F", spy)
+    if case == "frozen_f32":
+        backbone.requires_grad_(False)
+        with torch.no_grad():
+            backbone(x)
+        assert (kernel_calls["k4"], kernel_calls["k5"]) == (19, 1)
+        assert len(spy.convs) == 19 and not spy.norms and not spy.pools
+        stored = {p.data_ptr() for p in backbone.parameters()}
+        for xin, w, out in spy.convs:
+            assert _nhwc(xin) and _nhwc(out)
+            assert w.data_ptr() in stored  # the stored kernel, not a copy
+        return
+    relu = _ReluMasks()
+    monkeypatch.setattr(resnet, "torch", relu)
+    h, g = _features_and_conv1_grad(backbone, x)
+    assert len(relu.masks) == 17  # the stem, and two in each block
+    assert len(spy.convs) == 20 and len(spy.norms) == 20
+    assert len(spy.pools) == 1
+    if case == "trainable_bf16":
+        for xin, w, out in spy.convs:
+            assert w.is_contiguous(memory_format=CL) and _nhwc(out)
+            assert _nhwc(w) or w.shape[2:] == (1, 1)
+        assert all(_nhwc(t) for t in spy.norms)
+        return
+    for conv in spy.convs:
+        assert all(t.is_contiguous() for t in conv)
+    assert all(t.is_contiguous() for t in spy.norms)
+    assert all(a.is_contiguous() and b.is_contiguous() for a, b in spy.pools)
+    # the same weights with channels_last convs, through the same ReLU
+    # masks, agree to f32 rounding (a flipped kink alone moves conv1's
+    # gradient by ~3e-3 of its norm at batch 2)
+    monkeypatch.setattr(resnet, "F", _FunctionalSpy(channels_last=True))
+    relu.replay = True
+    h_cl, g_cl = _features_and_conv1_grad(backbone, x)
+    assert not relu.masks
+    np.testing.assert_allclose(h.numpy(), h_cl.numpy(), rtol=1e-5, atol=1e-5)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    assert (g - g_cl).norm() <= 1e-4 * g_cl.norm()

@@ -18,6 +18,15 @@ of tpumil/models/resnet.py), built without torchvision.
     ``F.max_pool2d``), as the JAX package runs XLA's norm when it trains;
     K4 and K5 have no backward and refuse a grad-requiring input. A frozen
     net (every inference path) takes K4 and K5.
+  * The layout follows the route and the compute dtype. A trainable f32 net
+    runs NCHW-contiguous from its input copy to the pooled features: each
+    conv gets an NCHW-contiguous input and an NCHW-contiguous copy of its
+    weight, so its output, every ``F.instance_norm`` input (which ATen
+    would otherwise copy to NCHW, and its gradient back), the ReLUs, the
+    residual adds and the max pool stay NCHW, where cuDNN's f32 convs and
+    the norm are native. Every other net runs channels_last as above (a
+    bf16 net's convs run on the tensor cores, whose cuDNN kernels are
+    NHWC). The weights are stored channels_last either way.
   * Batch norm runs folded running statistics (inference only).
   * ``compute_dtype`` bf16 keeps activations in bf16 between layers; norm
     statistics are always taken in f32. Parameters stay f32.
@@ -218,43 +227,47 @@ class _Block(nn.Module):
         return instance_norm(x, relu)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
-                instance_norm) -> torch.Tensor:
+                fmt: torch.memory_format, instance_norm) -> torch.Tensor:
         h = x
         last = len(self._names) - 1
         for i, leaf in enumerate(self._names):
             w = getattr(self, leaf).weight
-            h = _conv(h, w, self._strides[i], dtype)
+            h = _conv(h, w, self._strides[i], dtype, fmt)
             h = self._norm(leaf, h, i < last, instance_norm)
         identity = x
         if hasattr(self, "downsample"):
             identity = _conv(x, self.downsample[0].weight, self._strides[-1],
-                             dtype)
+                             dtype, fmt)
             identity = self._norm("downsample", identity, False,
                                   instance_norm)
         return torch.relu(h + identity)
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, stride: int,
-          dtype: torch.dtype) -> torch.Tensor:
+def _conv(x: torch.Tensor, w: torch.Tensor, stride: int, dtype: torch.dtype,
+          fmt: torch.memory_format = torch.channels_last) -> torch.Tensor:
+    """``F.conv2d`` with the weight in the route's memory format ``fmt``
+    (channels_last, as stored, is no copy)."""
     pad = (w.shape[-1] - 1) // 2
-    return F.conv2d(x, w.to(dtype), stride=stride, padding=pad)
+    return F.conv2d(x, w.to(dtype, memory_format=fmt), stride=stride,
+                    padding=pad)
 
 
 def _stem_space_to_depth(x: torch.Tensor, w7: torch.Tensor,
-                         dtype: torch.dtype) -> torch.Tensor:
+                         dtype: torch.dtype,
+                         fmt: torch.memory_format) -> torch.Tensor:
     """conv1 7x7/s2/p3 on a 2x2 space-to-depth input: channel packing
     (py, px, c); the kernel padded to 8x8 and regrouped to 12x4x4;
     asymmetric padding (2, 1) reproduces the receptive field exactly
-    (tpumil/models/resnet.py::_stem_space_to_depth in NCHW)."""
+    (tpumil/models/resnet.py::_stem_space_to_depth in NCHW). Input and
+    kernel go to the route's memory format ``fmt``, which the output keeps."""
     b, c, h, w = x.shape
     xs = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4) \
         .reshape(b, 4 * c, h // 2, w // 2)
-    cl = torch.channels_last  # keep the conv output in NHWC memory
-    xs = F.pad(xs, (2, 1, 2, 1)).contiguous(memory_format=cl)
+    xs = F.pad(xs, (2, 1, 2, 1)).contiguous(memory_format=fmt)
     o = w7.shape[0]
     wp = F.pad(w7, (1, 0, 1, 0))                       # [O, 3, 8, 8]
     ws = wp.reshape(o, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4) \
-        .reshape(o, 4 * c, 4, 4).contiguous(memory_format=cl)
+        .reshape(o, 4 * c, 4, 4).contiguous(memory_format=fmt)
     return F.conv2d(xs, ws.to(dtype))
 
 
@@ -308,6 +321,10 @@ class ResNet(nn.Module):
         trainable = self.conv1.weight.requires_grad
         instance_norm = _instance_norm_autograd if trainable \
             else _instance_norm
+        # the layout rule (module docstring): NCHW-contiguous for a
+        # trainable f32 net, channels_last for every other
+        fmt = torch.contiguous_format \
+            if trainable and dtype == torch.float32 else torch.channels_last
         if cfg.norm == "instance" and tuple(x.shape[1:]) == STEM_INPUT \
                 and not trainable:
             # conv, IN, ReLU and max pool in K5; NHWC out, handed on as its
@@ -316,18 +333,19 @@ class ResNet(nn.Module):
             x = fused_stem(x.contiguous(), w7, dtype).permute(0, 3, 1, 2)
         else:  # batch norm, other sizes, and every trainable net
             # the NCHW permute of a contiguous NHWC tensor IS channels_last
-            x = x.permute(0, 3, 1, 2).to(dtype)
+            # (no copy); NCHW-contiguous is one copy of the 3-channel image
+            x = x.permute(0, 3, 1, 2).to(dtype, memory_format=fmt)
             if cfg.space_to_depth and x.shape[2] % 2 == 0 \
                     and x.shape[3] % 2 == 0:
-                x = _stem_space_to_depth(x, self.conv1.weight, dtype)
+                x = _stem_space_to_depth(x, self.conv1.weight, dtype, fmt)
             else:
-                x = _conv(x, self.conv1.weight, 2, dtype)
+                x = _conv(x, self.conv1.weight, 2, dtype, fmt)
             x = self.bn1(x, True) if cfg.norm == "batch" \
                 else instance_norm(x, True)
             x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:
-                x = block(x, dtype, instance_norm)
+                x = block(x, dtype, fmt, instance_norm)
         return x.mean(dim=(2, 3)).float()
 
 
