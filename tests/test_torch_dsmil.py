@@ -187,13 +187,14 @@ def test_registry_and_unported_schemas(tmp_path):
     """Every registry name is a model now; the pooling schema loads."""
     from tpumil_torch.models.abmil import ABMIL
     from tpumil_torch.models.poolmil import MaxPool, MeanPool
+    from tpumil_torch.models.transmil import TransMIL
 
     assert get_model("dsmil") is DSMIL
     for name, cls in (("abmil", ABMIL), ("meanpool", MeanPool),
-                      ("maxpool", MaxPool)):
+                      ("maxpool", MaxPool), ("transmil", TransMIL)):
         assert get_model(name) is cls
     with pytest.raises(ValueError, match="unknown"):
-        get_model("transmil")
+        get_model("no-such-model")
     path = str(tmp_path / "pool.pth")
     torch.save({"i_classifier.fc.weight": torch.zeros(2, 8),
                 "i_classifier.fc.bias": torch.zeros(2),

@@ -218,7 +218,7 @@ def test_train_mil_cli(tmp_path, monkeypatch, capsys):
     assert "Cross validation accuracy mean" in out
     assert out.count("optimal accuracy") == 3
     missing = str(tmp_path / "absent.svm")
-    for argv, exc in ((["--model", "transmil"], ValueError),
+    for argv, exc in ((["--model", "no-such-model"], ValueError),
                       (["--model", "abmil", "--inst_shard", "2"],
                        NotImplementedError)):
         with pytest.raises(exc):

@@ -337,7 +337,7 @@ def test_train_wsi_cli(tmp_path, monkeypatch, capsys):
     model, cfg, _ = torch_ckpt.load_mil_pth(str(save_dir / "fold_0.pth"), CPU)
     assert cfg.feats_size == 16 and cfg.num_classes == 1
     with pytest.raises(ValueError):
-        train_wsi.main(["--device", "cpu", "--model", "transmil",
+        train_wsi.main(["--device", "cpu", "--model", "no-such-model",
                         "--dataset", "synth"])
     # --inst_shard 2 starts 2 gloo workers and writes the plain run's files
     out = util.run_cli("tpumil_torch.cli.train_wsi", [

@@ -188,11 +188,12 @@ def test_routing_decisions():
     assert BagTrainer(cfg, fused_threshold=t, device=CPU)._use_fused(t)
     assert not BagTrainer(cfg, fused_threshold=t,
                           device=CPU)._use_fused(t // 2)
-    for model in ("abmil", "meanpool", "maxpool"):  # DSMIL's pool only
+    for model in ("abmil", "meanpool", "maxpool",
+                  "transmil"):  # DSMIL's pool only
         assert not BagTrainer(cfg, model=model, fused_threshold=t,
                               device=CPU)._use_fused(65536)
-    with pytest.raises(ValueError, match="transmil"):
-        BagTrainer(cfg, model="transmil", device=CPU)
+    with pytest.raises(ValueError, match="no-such-model"):
+        BagTrainer(cfg, model="no-such-model", device=CPU)
 
     tr = BagTrainer(DSMILConfig(feats_size=512, num_classes=1), device=CPU)
     assert tr.fused_threshold == "auto"

@@ -42,9 +42,12 @@ def load_milnet(embedder_weights: str, aggregator_weights: str,
     from tpumil_torch.io import torch_ckpt
     from tpumil_torch.models import embedder
     from tpumil_torch.models.embedder import EmbedderConfig
+    from tpumil_torch.models.registry import require_instance_stream
 
     agg, agg_cfg, model_name = torch_ckpt.load_mil_pth(aggregator_weights,
                                                        device)
+    # the embedder's head is the aggregator's instance classifier
+    require_instance_stream(model_name, "an embedder with a slide head")
     if agg_cfg.num_classes != num_classes:
         raise ValueError(
             f"aggregator has {agg_cfg.num_classes} classes, expected "

@@ -41,7 +41,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--weight_decay", default=5e-3, type=float,
                         help="Weight decay [5e-3]")
     parser.add_argument("--model", default="dsmil", type=str,
-                        help="MIL model [dsmil|abmil|meanpool|maxpool]")
+                        help="MIL model "
+                             "[dsmil|abmil|meanpool|maxpool|transmil]")
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--inst_shard", default=0, type=int, metavar="N",
                         help="Shard every bag's instance axis over N devices "

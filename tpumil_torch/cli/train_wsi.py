@@ -47,7 +47,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--split", default=0.2, type=float,
                         help="Test split fraction [0.2]")
     parser.add_argument("--model", default="dsmil", type=str,
-                        help="MIL model [dsmil|abmil|meanpool|maxpool]")
+                        help="MIL model "
+                             "[dsmil|abmil|meanpool|maxpool|transmil]")
     parser.add_argument("--dropout_patch", default=0, type=float,
                         help="Patch dropout rate [0]")
     parser.add_argument("--dropout_node", default=0, type=float,

@@ -80,8 +80,10 @@ class BagInference:
     def __init__(self, embedder: Embedder, aggregator: nn.Module,
                  batch_size: int = 64, patch_size: Optional[int] = 224,
                  num_workers: int = 8, model: str = "dsmil", mesh=None):
-        from tpumil_torch.models.registry import get_model
+        from tpumil_torch.models.registry import (get_model,
+                                                  require_instance_stream)
 
+        require_instance_stream(model, "the attention map")
         if not isinstance(aggregator, get_model(model)):
             raise ValueError(f"aggregator is a {type(aggregator).__name__}, "
                              f"not a {model!r} model")

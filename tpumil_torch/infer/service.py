@@ -259,6 +259,10 @@ class InferenceService:
                  max_wait_ms: float = 8.0,
                  thresholds: Optional[Sequence[float]] = None,
                  average: bool = False, queue_limit: int = 256, mesh=None):
+        if aggregator is not None:
+            from tpumil_torch.models.registry import require_instance_stream
+
+            require_instance_stream(model, "the inference service")
         self.embedder = embedder
         self.device = device
         self.aggregator = aggregator

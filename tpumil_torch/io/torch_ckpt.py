@@ -20,11 +20,28 @@ The other registry models have the JAX package's schemas:
                b_classifier.fc.*
     pooling:   i_classifier.fc.{weight,bias}, pooling.mode (0-d: 0.0 mean,
                1.0 max)
+
+TransMIL has its reference module's keys (github.com/szc19990412/TransMIL
+``models/TransMIL.py``), D = 512, H = 8 heads, K features, C classes:
+
+    cls_token                            [1, 1, D]
+    pos_layer.proj{,1,2}.{weight,bias}   [D, 1, k, k], [D]  (k = 7, 5, 3)
+    _fc1.0.{weight,bias}                 [D, K], [D]
+    layer{1,2}.norm.{weight,bias}        [D]
+    layer{1,2}.attn.to_qkv.weight        [3D, D]
+    layer{1,2}.attn.to_out.0.{weight,bias}  [D, D], [D]
+    layer{1,2}.attn.res_conv.weight      [H, 1, 33, 1]
+    norm.{weight,bias}                   [D]
+    _fc2.{weight,bias}                   [C, D], [C]
+
+The landmarks, the pseudo-inverse's iterations and the dropout are not in
+the weights: a loaded TransMIL takes ``models/transmil.ARCH``'s.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 from typing import Mapping, Tuple, Union
 
 import torch
@@ -72,7 +89,10 @@ def dsmil_config_from_state_dict(sd) -> DSMILConfig:
 def mil_schema(sd) -> str:
     """The registry model a state_dict's keys belong to, in the JAX
     package's detection order: ``pooling.mode`` (above 0.5: maxpool),
-    then ``b_classifier.attention_v.weight`` (abmil), else dsmil."""
+    then ``b_classifier.attention_v.weight`` (abmil), else dsmil; a
+    ``cls_token`` is TransMIL's."""
+    if "cls_token" in sd:
+        return "transmil"
     if "pooling.mode" in sd:
         return "maxpool" if float(sd["pooling.mode"]) > 0.5 else "meanpool"
     if "b_classifier.attention_v.weight" in sd:
@@ -94,6 +114,8 @@ def load_mil_pth(path: str, device: torch.device
              if k in ("i_classifier.fc.weight", "i_classifier.fc.bias") else k,
              v) for k, v in sd.items())
         cfg = dsmil_config_from_state_dict(sd)
+    elif name == "transmil":
+        return _load_transmil(sd, device)
     else:
         num_classes, feats_size = sd["i_classifier.fc.weight"].shape
         cfg = DSMILConfig(feats_size=int(feats_size),
@@ -101,6 +123,21 @@ def load_mil_pth(path: str, device: torch.device
     model = get_model(name)(cfg, device)
     model.load_state_dict(sd, strict=True)
     return model.eval(), cfg, name
+
+
+def _load_transmil(sd, device: torch.device
+                   ) -> Tuple[torch.nn.Module, DSMILConfig, str]:
+    from tpumil_torch.models import transmil
+
+    dim, feats_size = sd["_fc1.0.weight"].shape
+    heads, _, taps, _ = sd["layer1.attn.res_conv.weight"].shape
+    cfg = DSMILConfig(feats_size=int(feats_size),
+                      num_classes=int(sd["_fc2.weight"].shape[0]))
+    arch = dataclasses.replace(transmil.ARCH, dim=int(dim), heads=int(heads),
+                               conv_taps=int(taps))
+    model = transmil.TransMIL(cfg, device, arch)
+    model.load_state_dict(sd, strict=True)
+    return model.eval(), cfg, "transmil"
 
 
 def save_mil_pth(params: Union[torch.nn.Module, Mapping[str, torch.Tensor]],

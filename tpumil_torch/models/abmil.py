@@ -61,6 +61,8 @@ class ABMIL(nn.Module):
     the JAX package's parameters (io/from_jax.abmil_state_dict) or from
     :func:`init_params`. Built in eval mode."""
 
+    objective = "dual_stream"
+    recipe = "adam"
     max_instance_logits = staticmethod(max_instance_logits)
 
     def __init__(self, cfg: DSMILConfig, device: torch.device):

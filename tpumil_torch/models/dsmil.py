@@ -124,6 +124,8 @@ class DSMIL(nn.Module):
     Every registry model (models/registry.py) has this constructor,
     forward contract, ``init_params`` and ``max_instance_logits``."""
 
+    objective = "dual_stream"
+    recipe = "adam"
     max_instance_logits = staticmethod(max_instance_logits)
 
     def __init__(self, cfg: DSMILConfig, device: torch.device):

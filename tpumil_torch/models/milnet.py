@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from tpumil_torch.models.dsmil import DSMILConfig, sigmoid
-from tpumil_torch.models.registry import get_model
+from tpumil_torch.models.registry import get_model, require_instance_stream
 from tpumil_torch.utils.device import select_device
 
 
@@ -43,6 +43,7 @@ class MILNet:
                nonlinear: bool = True, passing_v: bool = False,
                model: str = "dsmil", seed: int = 0,
                device: Optional[torch.device] = None) -> "MILNet":
+        require_instance_stream(model, "MILNet")
         cfg = DSMILConfig(feats_size=feats_size, num_classes=num_classes,
                           nonlinear=nonlinear, passing_v=passing_v)
         module = get_model(model).init_params(

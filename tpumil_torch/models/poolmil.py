@@ -50,6 +50,8 @@ class _PoolMIL(nn.Module):
     :meth:`init_params`. Built in eval mode."""
 
     MODE: float
+    objective = "dual_stream"
+    recipe = "adam"
     max_instance_logits = staticmethod(max_instance_logits)
 
     def __init__(self, cfg: DSMILConfig, device: torch.device):

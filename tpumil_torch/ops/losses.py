@@ -43,3 +43,28 @@ def dual_stream_loss(bag_logits: torch.Tensor, max_ins_logits: torch.Tensor,
     """The DSMIL objective ``0.5 BCE(bag, y) + 0.5 BCE(max instance, y)``."""
     return 0.5 * bce_with_logits(bag_logits, labels, pos_weight) \
         + 0.5 * bce_with_logits(max_ins_logits, labels, pos_weight)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       pos_weight: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """TransMIL's objective on a bag's logits ``[C]``: the softmax
+    cross-entropy against the bag's class, the largest entry of its label
+    ``[C]`` (one-hot; no host sync). One logit ``x`` is a two-class softmax
+    over ``(0, x)``, which is BCE, and takes ``pos_weight`` as BCE does;
+    with more, ``pos_weight`` is refused."""
+    if logits.shape[-1] == 1:
+        return bce_with_logits(logits, labels, pos_weight)
+    if pos_weight is not None:
+        raise ValueError("pos_weight weights a binary objective; the "
+                         "softmax cross-entropy over C > 1 classes takes "
+                         "none")
+    return F.cross_entropy(logits.float()[None], labels.argmax(-1)[None])
+
+
+def class_scores(logits: torch.Tensor) -> torch.Tensor:
+    """The scores of :func:`cross_entropy_loss`'s logits: their softmax,
+    or, for one logit, its sigmoid."""
+    if logits.shape[-1] == 1:
+        return torch.sigmoid(logits)
+    return torch.softmax(logits, -1)

@@ -29,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from tpumil_torch.models.dsmil import DSMILConfig
-from tpumil_torch.models.registry import get_model
+from tpumil_torch.models.registry import get_model, require_instance_stream
 from tpumil_torch.ops.losses import dual_stream_loss
 from tpumil_torch.parallel.bag_shard import collective
 from tpumil_torch.parallel.mesh import DATA_AXIS, INST_AXIS, axis_size
@@ -53,6 +53,7 @@ def make_sharded_train_step(cfg: DSMILConfig, mesh, optimizer=None,
         raise NotImplementedError(
             "the sharded minibatch step has no dropout rng plumbing; "
             "train passing_v+dropout_v models through BagTrainer")
+    require_instance_stream(model, "the data-parallel minibatch step")
     mil = get_model(model)
     optimizer = optimizer or functools.partial(adam_torch, weight_decay=1e-3)
     if axis_size(mesh, DATA_AXIS) * axis_size(mesh, INST_AXIS) \

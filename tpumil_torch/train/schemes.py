@@ -42,7 +42,7 @@ from tpumil_torch.data.mil_bench import (
 from tpumil_torch.io import native_ckpt, torch_ckpt
 from tpumil_torch.models import dsmil
 from tpumil_torch.models.dsmil import DSMILConfig
-from tpumil_torch.models.registry import get_model
+from tpumil_torch.models.registry import get_model, require_instance_stream
 from tpumil_torch.parallel.mesh import (barrier, broadcast_from_main,
                                         default_inst_parallel, is_main,
                                         make_mesh)
@@ -239,7 +239,10 @@ def check_config(cfg: WSITrainConfig) -> None:
     if cfg.inst_shard and cfg.data_parallel:
         raise ValueError("inst_shard and data_parallel are mutually "
                          "exclusive (per-bag vs minibatch optimization)")
-    get_model(cfg.model)  # unknown names raise here
+    mil = get_model(cfg.model)  # unknown names raise here
+    if cfg.average and mil.objective != "dual_stream":
+        raise ValueError(f"--average adds the max instance score; model "
+                         f"{cfg.model!r} has no instance stream")
     if cfg.inst_shard:
         from tpumil_torch.parallel.bag_shard import check_inst_shard
 
@@ -248,6 +251,7 @@ def check_config(cfg: WSITrainConfig) -> None:
     if cfg.data_parallel:
         from tpumil_torch.parallel.sharded_train import check_data_parallel
 
+        require_instance_stream(cfg.model, "--data_parallel")
         sp = default_inst_parallel(cfg.data_parallel)
         check_data_parallel(cfg.data_parallel // sp, sp, cfg.dropout_patch)
 

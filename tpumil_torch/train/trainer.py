@@ -1,6 +1,9 @@
 """Per-bag trainer of the MIL aggregators (counterpart of
 tpumil/train/trainer.py): any registry model (models/registry.py), with
-the dual-stream objective on its bag logits and its max instance logit.
+the model's objective and recipe: the dual-stream objective on its bag
+logits and its max instance logit, sigmoid scores and Adam (DSMIL, ABMIL,
+pooling), or the softmax cross-entropy on its bag logits, softmax scores
+and Lookahead(RAdam) (TransMIL).
 
 One Adam step per bag, in the order the host RNG draws: the reference's
 optimization (train_tcga.py:55-76). Bags run unpadded and eagerly, one
@@ -42,8 +45,9 @@ from tpumil_torch.data.device_store import DeviceBagStore
 from tpumil_torch.models.dsmil import DSMILConfig, sigmoid
 from tpumil_torch.models.registry import get_model
 from tpumil_torch.ops.attention_pool import fused_bag_forward, fused_bag_loss
-from tpumil_torch.ops.losses import dual_stream_loss
-from tpumil_torch.train.optim import adam_torch, set_lr
+from tpumil_torch.ops.losses import (class_scores, cross_entropy_loss,
+                                     dual_stream_loss)
+from tpumil_torch.train.optim import adam_torch, lookahead_radam, set_lr
 from tpumil_torch.utils.device import select_device
 from tpumil_torch.utils.prof import span
 
@@ -138,6 +142,10 @@ class BagTrainer:
 
     def __post_init__(self):
         self._mil = get_model(self.model)  # unknown names raise here
+        self._ce = self._mil.objective == "cross_entropy"
+        if self._ce and self.cfg.compute_dtype != torch.float32:
+            raise ValueError(f"model {self.model!r} computes in float32, "
+                             f"not {self.cfg.compute_dtype}")
         if self.device is None:
             self.device = select_device("cuda")
         self._fused_eligible = (
@@ -193,7 +201,12 @@ class BagTrainer:
         model = self._mil.init_params(generator, self.cfg, self.device)
         return model, self.make_optimizer(model)
 
-    def make_optimizer(self, model: torch.nn.Module) -> torch.optim.Adam:
+    def make_optimizer(self, model: torch.nn.Module):
+        """The optimizer of the model's recipe (``weight_decay`` is Adam's
+        L2 term, or RAdam's decoupled decay)."""
+        if self._mil.recipe == "lookahead_radam":
+            return lookahead_radam(model.parameters(),
+                                   weight_decay=self.weight_decay)
         return adam_torch(model.parameters(), weight_decay=self.weight_decay)
 
     def _train_bags(self, model: torch.nn.Module, opt: torch.optim.Optimizer,
@@ -228,6 +241,8 @@ class BagTrainer:
                                       1.0 - self.dropout_patch, self.device)
         c, bag_logits, _, _ = model(feats, mask, dropout_generator=generator,
                                     compute_dtype=self.cfg.compute_dtype)
+        if self._ce:
+            return cross_entropy_loss(bag_logits, label, pw)
         return dual_stream_loss(
             bag_logits, self._mil.max_instance_logits(c, mask), label, pw)
 
@@ -251,12 +266,17 @@ class BagTrainer:
                             1.0 - self.dropout_patch, self.device)
                     c, bag_logits, _, _ = model(
                         feats, mask, compute_dtype=self.cfg.compute_dtype)
-                    max_logits = self._mil.max_instance_logits(c, mask)
-                loss = dual_stream_loss(bag_logits, max_logits, label, pw)
-                # in the compute dtype, as the JAX package's eval; f32 only
-                # where they are stacked
-                scores = sigmoid(bag_logits)
-                avg = scores + sigmoid(max_logits)
+                    if not self._ce:
+                        max_logits = self._mil.max_instance_logits(c, mask)
+                if self._ce:
+                    loss = cross_entropy_loss(bag_logits, label, pw)
+                    scores = avg = class_scores(bag_logits)
+                else:
+                    loss = dual_stream_loss(bag_logits, max_logits, label, pw)
+                    # in the compute dtype, as the JAX package's eval; f32
+                    # only where they are stacked
+                    scores = sigmoid(bag_logits)
+                    avg = scores + sigmoid(max_logits)
                 out.append(torch.cat([loss[None], scores.float(),
                                       avg.float()]))
         res = torch.stack(out).cpu().numpy()
@@ -359,8 +379,12 @@ class BagTrainer:
                 ) -> Tuple[np.ndarray, np.ndarray]:
         """Scores [num_bags, C] and losses [num_bags], in bag order. With
         ``average`` the scores are ``sigmoid(bag) + sigmoid(max instance)``,
-        the reference's ``--average``. One ``rng.integers`` per chunk or
-        bucket, as the JAX trainer draws."""
+        the reference's ``--average`` (refused for a model with no instance
+        stream). One ``rng.integers`` per chunk or bucket, as the JAX
+        trainer draws."""
+        if average and self._ce:
+            raise ValueError(f"--average adds the max instance score; model "
+                             f"{self.model!r} has no instance stream")
         rng = rng or np.random.default_rng(0)
         if isinstance(bags, DeviceBagStore):
             n = bags.num_bags
