@@ -9,22 +9,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device    -- nvidia-smi name/power limit, torch/CUDA versions; needs a
                   CUDA card of capability (9, 0)
   2. build     -- compile tpumil_torch/csrc/*.cu into build/tpumil_torch/
-  3. kernel    -- fused_instance_norm (K4) vs its plain PyTorch version at
+  3. depthwise -- TransMIL's depthwise convs (csrc/depthwise.cu) at the
+                  cohort's mean and largest bags (N = 6758 and 65536: P =
+                  65792, side 256): residual_conv and ppeg against their
+                  plain versions on the same card inputs, output and every
+                  gradient; the device time of the kernels, of the plain
+                  versions and of F.conv2d as the reference calls it,
+                  beside their bound; then one BagTrainer TransMIL step at
+                  the published widths with its launches counted (6 and 4)
+                  and no ATen depthwise kernel in its trace
+  4. kernel    -- fused_instance_norm (K4) vs its plain PyTorch version at
                   the five ResNet18 IN shapes (B=128), f32 and bf16, relu
                   on/off, a bitwise rerun, plus a constant plane; the route
                   each shape takes (one read over a cluster, or two reads)
                   and, per shape, the device time of that route and of the
                   two-read route; the sum over one forward's 19 IN sites
-  4. embedder  -- ResNet18-IN f32 224^2 batch 128: kernel route vs plain
+  5. embedder  -- ResNet18-IN f32 224^2 batch 128: kernel route vs plain
                   route, 19 K4 launches and 1 K5 launch per forward
-  5. golden    -- the shipped aggregators vs the reference's golden outputs
-  6. serve     -- tpumil_torch.cli.serve on 127.0.0.1, concurrent clients on
+  6. golden    -- the shipped aggregators vs the reference's golden outputs
+  7. serve     -- tpumil_torch.cli.serve on 127.0.0.1, concurrent clients on
                   /v1/embed, /v1/predict_patches, /v1/predict, /v1/heatmap
-  7. pool      -- the attention-pool kernels K1, K2, K3 vs their plain
+  8. pool      -- the attention-pool kernels K1, K2, K3 vs their plain
                   versions at K=512, C=2, N up to 262144 (K1's logits too);
                   bitwise reruns; CUDA-event times, K3 with dF written and
                   skipped, beside the times of their earlier FFMA designs
-  8. train     -- BagTrainer at full width on seeded synthetic bags up to
+  9. train     -- BagTrainer at full width on seeded synthetic bags up to
                   65529 instances: the kernel route against the eager route
                   from the same init and seed; ms per bag step; each route's
                   working set per instance; then a bf16 DSMILConfig
@@ -35,23 +44,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   (host ms and torch.profiler device ms); the bf16 step's
                   working set per instance; a bf16 DeviceBagStore's nbytes
                   and one predict on it
-  9. train_wsi -- python -m tpumil_torch.cli.train_wsi --device cuda on a
+ 10. train_wsi -- python -m tpumil_torch.cli.train_wsi --device cuda on a
                   synthetic TCGA-shaped CSV dataset, 5-fold-cv
- 10. train_mil -- the classic-MIL path on tests/data/musk1_mini.svm (K=166,
+ 11. train_mil -- the classic-MIL path on tests/data/musk1_mini.svm (K=166,
                   C=1, 3 folds x 2 epochs): python -m tpumil_torch.cli.train_mil
                   for dsmil, run_mil_cv for abmil/meanpool/maxpool, ms per bag
                   step; then BagTrainer's kernel route at K=166 (padded for
                   K1-K3) against its eager route, with K1-K3 launch counts
- 11. stem      -- the fused stem (K5) vs its plain version at B=128 224^2,
+ 12. stem      -- the fused stem (K5) vs its plain version at B=128 224^2,
                   f32 and bf16, blank tiles and a tile-boundary image, a
                   bitwise rerun; CUDA-event times of K5, the plain version
                   and the conv route (cuDNN conv, K4, max pool: the stem of
                   other inputs), beside the earlier FFMA design's times
- 12. compute_feats -- a JPEG tree of 2 classes x 3 bags x 256 patches:
+ 13. compute_feats -- a JPEG tree of 2 classes x 3 bags x 256 patches:
                   python -m tpumil_torch.cli.compute_feats --device cuda,
                   compute_feats in-process with the stem in K5 and, in
                   turns, in the conv route, then train_wsi on the CSVs
- 13. slide_feats -- two synthetic 3-level pyramidal TIFFs at 20x (4480^2,
+ 14. slide_feats -- two synthetic 3-level pyramidal TIFFs at 20x (4480^2,
                   400 tiles of 224^2 each, textured tissue over ~60%):
                   python -m tpumil_torch.cli.tiler and python -m
                   tpumil_torch.cli.slide_feats --device cuda, the same tile
@@ -60,7 +69,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   against embed_arrays of the same tiles read back, the
                   padded batch included; tiles/s, slides/min, the device's
                   busy share, the reader and the edge filter
- 14. attention_map -- a folder of 3 bags of 600, 1000 and 130 JPEG patches
+ 15. attention_map -- a folder of 3 bags of 600, 1000 and 130 JPEG patches
                   of 224^2 on tile grids with holes: python -m
                   tpumil_torch.cli.attention_map (TCGA aggregator, f32,
                   --export_scores 1 --seed 0), testing_tcga, testing_c16 and
@@ -71,7 +80,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   aggregator and the 130-patch bag against the port's CPU
                   path; patches/s per bag, the device's busy share, the wall
                   split into decode and embed, aggregate, render, PNG, CSV
- 15. simclr    -- a tree of 320 JPEG patches of 224^2: python -m
+ 16. simclr    -- a tree of 320 JPEG patches of 224^2: python -m
                   tpumil_torch.cli.simclr_train --device cuda (ResNet18-IN,
                   bf16, batch 64, 3 epochs), killed once epoch 2's resume
                   state is saved, then resumed with --grad_cache 16; one f32
@@ -84,7 +93,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   4096 with --grad_cache 128; the busy share and the
                   normalization's share of a default step; the trained
                   model.pth through compute_feats' embedder (K5/K4 1/19)
- 16. pool_bf16 -- K1-bf16 (the bf16 feature stream of K1) vs its plain
+ 17. pool_bf16 -- K1-bf16 (the bf16 feature stream of K1) vs its plain
                   version at the kernel's rounding points (64-row tiles in
                   each CTA's range) at K=512, C=2, N up to 262144, its error
                   against the f32 K1, bitwise reruns, the times of the
@@ -93,12 +102,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   registers and spills; then fused_bag_forward(feats_dtype=
                   bfloat16) on a DSMIL at N=65529 against the CPU, its
                   K1-bf16 launch counted, timed whole and by part
- 17. pipeline  -- eight synthetic two-page TIFF slides of 1024^2: python -m
+ 18. pipeline  -- eight synthetic two-page TIFF slides of 1024^2: python -m
                   tpumil_torch.cli.pipeline --stages tile,simclr, then the
                   feats, train and maps stages through pipeline.main with
                   K5/K4 (and K1-K3) launches counted per stage; every
                   stage's artifacts, the resolved YAML's round trip, walls
- 18. scale_out -- the training half of scale-out at world 1 on NCCL: 3
+ 19. scale_out -- the training half of scale-out at world 1 on NCCL: 3
                   InstanceShardedBagTrainer steps against 3 eager BagTrainer
                   steps on the [train] bags of N=4000 and 65529 (params
                   within rtol 1e-3 / atol 2e-5, collective calls per step,
@@ -110,7 +119,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                   bf16 inst-sharded step at N=65529 against the unsharded
                   bf16 step from the same weights (loss gap within 2e-2,
                   weights within 2 lr)
- 19. scale_out_embed -- the embedding half of scale-out at world 1 on
+ 20. scale_out_embed -- the embedding half of scale-out at world 1 on
                   NCCL: FeatureExtractor(mesh) on 2 batches of 128 224^2
                   JPEGs bitwise the single-device features (and 37 rows
                   through embed_arrays), K5/K4 launches on the sharded path
@@ -198,6 +207,11 @@ AM_BAGS, AM_BATCH = (600, 1000, 130), 64
 # square of tissue^2 in the corner (tests/test_pipeline_e2e.py's generator,
 # grown to give ~16 tiles of 224^2 each)
 PL_CLASSES, PL_SLIDES, PL_SIDE, PL_TISSUE = 2, 4, 1024, 800
+# TransMIL's depthwise convs: the cohort's mean and largest bag sizes, and
+# |kernel - plain| <= DW_RTOL * max|plain| (the PPEG's backward sums its
+# merged 7x7 in another order than ATen's three convs)
+DW_N = (6758, 65536)
+DW_RTOL = 1e-5
 # H100 SXM published peaks at 700 W (NVIDIA's data sheet, dense): memory
 # bytes/s, and flop/s by operand type (f32 on the CUDA cores, bf16 on the
 # tensor cores)
@@ -3138,12 +3152,208 @@ def phase_scale_out_embed(gpu: str, cf: dict) -> dict:
             "step_ms": st}
 
 
+def dw_sites(n: int, seed: int):
+    """TransMIL's two depthwise sites at bag size n, published widths: the
+    residual conv's qkv [P, 1536] (its front P - T rows zero, as the model
+    pads) with its weight, the PPEG's x [T, 512] with its six leaves, and
+    an output gradient [T, 512] for each."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=g) * scale
+
+    side = int(np.ceil(np.sqrt(n)))
+    t = side * side + 1
+    big = 256 * -(-t // 256)
+    qkv = rand(big, 1536)
+    qkv[:big - t] = 0
+    res = {"t": t, "big": big, "x": qkv, "dy": rand(t, 512),
+           "leaves": [rand(8, 1, 33, 1, scale=33 ** -0.5)]}
+    ppeg = {"t": t, "side": side, "x": rand(t, 512), "dy": rand(t, 512),
+            "leaves": [rand(*shape, scale=0.1) for k in (7, 5, 3)
+                       for shape in ((512, 1, k, k), (512,))]}
+    return res, ppeg
+
+
+def dw_calls(site: str, s: dict):
+    """{variant: fn(x, *leaves) -> [T, 512]} of one site: the wrapper (the
+    kernels), its plain version, and F.conv2d as the reference calls it."""
+    from tpumil_torch.ops import depthwise as dw
+
+    if site == "res_conv":
+        t, big = s["t"], s["big"]
+
+        def v(qkv):
+            return qkv.view(big, 3, 8, 64).permute(1, 2, 0, 3)[2]
+
+        def library(qkv, w):
+            out = F.conv2d(v(qkv)[None], w, padding=(16, 0), groups=8)[0]
+            return out.transpose(0, 1).reshape(big, -1)[-t:]
+
+        return {"kernel": lambda qkv, w: dw.residual_conv(v(qkv), w, t),
+                "plain": lambda qkv, w: dw.residual_conv_plain(v(qkv), w, t),
+                "library": library}
+    side = s["side"]
+
+    def library(x, w7, b7, w5, b5, w3, b3):
+        g = x[1:].transpose(0, 1).reshape(1, 512, side, side)
+        conv = [F.conv2d(g, w, b, padding=w.shape[-1] // 2, groups=512)
+                for w, b in ((w7, b7), (w5, b5), (w3, b3))]
+        g = conv[0] + g + conv[1] + conv[2]
+        return torch.cat([x[:1], g.reshape(512, -1).transpose(0, 1)])
+
+    return {"kernel": lambda x, *w: dw.ppeg(x, side, *w),
+            "plain": lambda x, *w: dw.ppeg_plain(x, side, *w),
+            "library": library}
+
+
+def dw_fwd_bwd(fn, s: dict):
+    """fn's output and the gradients of (output * dy).sum() for its input
+    and every leaf."""
+    leaves = [t.detach().requires_grad_() for t in (s["x"], *s["leaves"])]
+    out = fn(*leaves)
+    return [out.detach(), *torch.autograd.grad(out, leaves, s["dy"])]
+
+
+def dw_device_us(fn, s: dict, calls: int = 5):
+    """(device us of all kernels, of the package's dw_ kernels) per
+    forward + backward of fn, from a torch.profiler trace of ``calls``
+    synced calls after two warm-ups."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.serve_profile import device_events
+
+    for _ in range(2):
+        dw_fwd_bwd(fn, s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            dw_fwd_bwd(fn, s)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    if not events:
+        raise AssertionError("[depthwise] the trace holds no device event")
+    total = sum(float(e["dur"]) for e in events)
+    ours = sum(float(e["dur"]) for e in events if "dw_" in e["name"])
+    return total / calls, ours / calls
+
+
+def dw_bound(site: str, s: dict):
+    """The three passes' bound: each reads its input and writes its output
+    once (the weight gradient reads two), 2048 B a row of 512 f32; and
+    2 x taps FLOP an output element (the PPEG's forward: 49 + 25 + 9)."""
+    t = s["t"]
+    if site == "res_conv":
+        # forward: T rows of v in, T out; input gradient: T of dy in, P of
+        # dv out; weight gradient: T of v and T of dy in
+        rows = 5 * t + s["big"]
+        return bound(rows * 2048, 2 * 33 * 512 * (2 * t + s["big"]))
+    grid = s["side"] ** 2
+    return bound(3 * 2 * grid * 2048, 2 * (83 + 49 + 49) * 512 * grid)
+
+
+def phase_depthwise(gpu: str) -> dict:
+    """ops/depthwise's kernels against their plain versions at the main
+    path's shapes, their device time beside the plain versions', ATen's
+    and the bound, and one TransMIL training step's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpumil_torch.data.bags import Bag
+    from tpumil_torch.models.dsmil import DSMILConfig
+    from tpumil_torch.ops import depthwise as dw
+    from tpumil_torch.train.trainer import BagTrainer
+
+    names = {"res_conv": ["out", "dqkv", "dw"],
+             "ppeg": ["out", "dx", "dw7", "db7", "dw5", "db5", "dw3", "db3"]}
+    wrappers = {"res_conv": dw.residual_conv, "ppeg": dw.ppeg}
+    # forward, input gradient, weight gradient (the PPEG's: and its merge)
+    per_call = {"res_conv": 3, "ppeg": 4}
+    result = {site: {"by_n": {}} for site in names}
+    failures = []
+    for n in DW_N:
+        sites = dict(zip(names, dw_sites(n, seed=n)))
+        for site, s in sites.items():
+            calls = dw_calls(site, s)
+            wrappers[site].launches = 0
+            got = dw_fwd_bwd(calls["kernel"], s)
+            launches = wrappers[site].launches
+            want = dw_fwd_bwd(calls["plain"], s)
+            errs = {}
+            for name, a, b in zip(names[site], got, want):
+                if not torch.isfinite(a).all():
+                    failures.append(f"{site} N={n} {name}: non-finite")
+                scale = max(float(b.abs().max()), 1e-30)
+                err = float((a - b).abs().max())
+                errs[name] = (err, err / scale)
+                if err > DW_RTOL * scale:
+                    failures.append(f"{site} N={n} {name}: {err:.3e} of "
+                                    f"max {scale:.3e}")
+            if launches != per_call[site]:
+                failures.append(f"{site} N={n}: {launches} launches")
+            del got, want
+            (us_k, us_dw), (us_p, _), (us_l, _) = (
+                dw_device_us(calls[v], s) for v in ("kernel", "plain",
+                                                    "library"))
+            bound_ms, bound_by = dw_bound(site, s)
+            result[site]["by_n"][n] = {
+                "ms": us_dw / 1e3, "call_ms": us_k / 1e3,
+                "plain_ms": us_p / 1e3, "library_ms": us_l / 1e3,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "launches_per_call": launches,
+                "max_abs_err": max(e for e, _ in errs.values()),
+                "max_err_of_max": max(r for _, r in errs.values())}
+            log(f"[depthwise] {site} N={n} (T={s['t']}): forward + backward "
+                f"in {launches} launches; |kernel - plain| / max|plain|: "
+                + ", ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
+                + f" (bar {DW_RTOL}); device ms: kernels {us_dw / 1e3:.4f} "
+                f"(the whole call {us_k / 1e3:.4f}), plain "
+                f"{us_p / 1e3:.4f}, F.conv2d as the reference calls it "
+                f"{us_l / 1e3:.4f}; bound {bound_ms:.4f} ({bound_by}); {gpu}")
+        del sites
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("[depthwise] kernels against plain: "
+                             + "; ".join(failures))
+
+    # one TransMIL bag step at the published widths, after a warm-up step
+    dev = torch.device("cuda")
+    n = DW_N[0]
+    rng = np.random.default_rng(5)
+    bags = [Bag(np.abs(rng.standard_normal((n, 1024), np.float32)),
+                np.eye(2, dtype=np.float32)[1], "b0")]
+    trainer = BagTrainer(DSMILConfig(1024, 2), weight_decay=1e-5,
+                         model="transmil", device=dev)
+    model, opt = trainer.init(torch.Generator().manual_seed(0))
+    trainer.train_epoch(model, opt, bags, 2e-4, np.random.default_rng(1))
+    torch.cuda.synchronize()
+    dw.residual_conv.launches = dw.ppeg.launches = 0  # the step starts here
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, loss = trainer.train_epoch(model, opt, bags, 2e-4,
+                                         np.random.default_rng(2))
+        torch.cuda.synchronize()
+    counts = (dw.residual_conv.launches, dw.ppeg.launches)
+    kernels = {e.key for e in prof.key_averages()}
+    aten = sorted(k for k in kernels if "conv_depthwise2d" in k)
+    ours = sorted({re.search(r"dw_\w+", k).group(0) for k in kernels
+                   if "dw_" in k})
+    log(f"[depthwise] one TransMIL step, N={n}, K=1024: loss {loss:.6f}; "
+        f"launches residual_conv {counts[0]}, ppeg {counts[1]} (want 6 "
+        f"and 4); package kernels {ours}; ATen depthwise kernels {aten}")
+    if counts != (6, 4) or aten or not ours or not np.isfinite(loss):
+        raise AssertionError(f"[depthwise] the TransMIL step: launches "
+                             f"{counts}, ATen's {aten}, ours {ours}, loss "
+                             f"{loss}")
+    result["res_conv"]["launches"], result["ppeg"]["launches"] = counts
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     gpu = phase_device()
     compiler_log = phase_build()
+    depthwise = phase_depthwise(gpu)
     k4 = phase_kernel(gpu)
     phase_embedder(gpu)
     phase_golden()
@@ -3197,6 +3407,17 @@ def main() -> int:
         "source": "tpumil_torch/csrc/stem.cu",
         "replaces": "tpumil/ops/stem_pallas.py:84",
         "launches": k5_launches, **stem, "library_ms": None})
+    # at the largest bag, N = 65536; launches: one TransMIL step's
+    for site, name in (("res_conv", "residual_conv"), ("ppeg", "ppeg")):
+        big = depthwise[site]["by_n"][DW_N[-1]]
+        kernels.append({
+            "name": f"depthwise.{name}", "route": "cuda",
+            "source": "tpumil_torch/csrc/depthwise.cu", "replaces": None,
+            "launches": depthwise[site]["launches"],
+            "max_abs_err": big["max_abs_err"], "ms": big["ms"],
+            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"], "library_ms": big["library_ms"],
+            "by_n": depthwise[site]["by_n"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

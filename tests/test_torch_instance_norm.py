@@ -156,8 +156,8 @@ def test_build_is_keyed_by_source_contents(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
     assert [p.name for p in build.sources()] == [
-        "attention_pool.cu", "attention_pool_bf16.cu", "instance_norm.cu",
-        "stem.cu"]
+        "attention_pool.cu", "attention_pool_bf16.cu", "depthwise.cu",
+        "instance_norm.cu", "stem.cu"]
 
 
 def test_other_device_raises_not_falls_back():

@@ -827,3 +827,179 @@ def test_trainable_f32_resnet_runs_without_layout_copies(card, monkeypatch):
     assert control > 0.1, control
     assert copies + transforms < 0.05 and transforms < 0.01, \
         (copies, transforms, control)
+
+
+# -- TransMIL's depthwise convs (csrc/depthwise.cu) ----------------------------
+
+import math  # noqa: E402
+
+from tpumil_torch.ops import depthwise as dw  # noqa: E402
+
+DW_SIZES = [256, 4096, 6758, 65536]  # the cohort's ends, median and mean
+DW_TOL = 2e-5  # of the largest float64 value: f32 sums in another order
+
+
+def _dw_inputs(card, n, seed=0):
+    """The two sites at bag size n, published widths: v as a head-split
+    view of a [P, 1536] qkv (its front P - T rows zero, as the model pads),
+    the PPEG's x [T, 512], their leaves and output gradients."""
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, device=card, generator=g) * scale
+
+    side = math.isqrt(n - 1) + 1
+    t = side * side + 1
+    big = 256 * -(-t // 256)
+    qkv = rand(big, 1536)
+    qkv[:big - t] = 0
+    res = {"inputs": [qkv.requires_grad_()],
+           "leaves": [rand(8, 1, 33, 1, scale=33 ** -0.5)],
+           "dy": rand(t, 512), "t": t}
+    ppeg = {"inputs": [rand(t, 512)], "dy": rand(t, 512), "side": side,
+            "leaves": [rand(*s, scale=0.1) for k in (7, 5, 3)
+                       for s in ((512, 1, k, k), (512,))]}
+    return res, ppeg
+
+
+def _dw_run(fn, site, double=False):
+    """Output and gradients [input, *leaves] of one site, through the
+    wrapper (the kernels) or, in float64, through its plain version."""
+    cast = (lambda t: t.detach().double().requires_grad_()) if double else \
+        (lambda t: t.detach().requires_grad_())
+    leaves = [cast(w) for w in site["leaves"]]
+    base = cast(site["inputs"][0])
+    if fn is dw.residual_conv:
+        x = base.view(base.shape[0], 3, 8, 64).permute(1, 2, 0, 3)[2]
+        plain = dw.residual_conv_plain
+        args = (site["t"],)
+        call = (lambda x, *w: (plain if double else fn)(x, *w, *args))
+    else:
+        x = base
+        plain = dw.ppeg_plain
+        call = (lambda x, *w: (plain if double else fn)(x, site["side"], *w))
+    out = call(x, *leaves)
+    grads = torch.autograd.grad((out * site["dy"].to(out.dtype)).sum(),
+                                [base, *leaves])
+    return [out.detach(), *grads]
+
+
+def _dw_close(got, want, what):
+    scale = float(want.abs().max())
+    err = float((got.double() - want).abs().max())
+    assert err <= DW_TOL * max(scale, 1e-30), f"{what}: {err} of {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", DW_SIZES)
+def test_depthwise_kernels_match_plain(card, n):
+    """Forward, input gradient and every leaf's gradient of both sites,
+    against the plain versions in float64 (P = 65792 and side = 256 at
+    N = 65536); a site's launches: forward, input gradient and the weight
+    gradient (the PPEG's as partials and their merge)."""
+    res, ppeg = _dw_inputs(card, n)
+    for fn, site, names, launches in (
+            (dw.residual_conv, res, ["out", "dqkv", "dw"], 3),
+            (dw.ppeg, ppeg, ["out", "dx", "dw7", "db7", "dw5", "db5", "dw3",
+                             "db3"], 4)):
+        before = fn.launches
+        got = _dw_run(fn, site)
+        torch.cuda.synchronize()
+        assert fn.launches == before + launches
+        want = _dw_run(fn, site, double=True)
+        for name, a, b in zip(names, got, want):
+            _dw_close(a, b, f"{fn.__name__} N={n} {name}")
+
+
+@pytest.mark.cuda
+def test_depthwise_kernels_rerun_bitwise(card):
+    res, ppeg = _dw_inputs(card, 6758, seed=1)
+    for fn, site in ((dw.residual_conv, res), (dw.ppeg, ppeg)):
+        first, again = _dw_run(fn, site), _dw_run(fn, site)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b), fn.__name__
+
+
+@pytest.mark.cuda
+def test_depthwise_refuses_bad_cuda_input(card):
+    qkv = torch.randn(512, 1536, device=card)
+    v = qkv.view(512, 3, 8, 64).permute(1, 2, 0, 3)[2]
+    w = torch.randn(8, 1, 33, 1, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        dw.residual_conv(v.double(), w.double(), 257)
+    with pytest.raises(ValueError, match="tensors on cpu"):
+        dw.residual_conv(v, w.cpu(), 257)
+    with pytest.raises(ValueError, match="side by side"):
+        dw.residual_conv(v.contiguous(), w, 257)
+    with pytest.raises(ValueError, match="taps"):
+        dw.residual_conv(v, w[:, :, :31].contiguous(), 257)
+    x = torch.randn(257, 512, device=card)
+    convs = [torch.randn(s, device=card) for k in (7, 5, 3)
+             for s in ((512, 1, k, k), (512,))]
+    with pytest.raises(ValueError, match="contiguous"):
+        dw.ppeg(x.t().contiguous().t(), 16, *convs)
+    with pytest.raises(ValueError, match="float32"):
+        dw.ppeg(x.half(), 16, *convs)
+    with pytest.raises(ValueError, match="tensors on cpu"):
+        dw.ppeg(x, 16, *convs[:-1], convs[-1].cpu())
+
+
+@pytest.mark.cuda
+def test_transmil_step_runs_the_depthwise_kernels(card):
+    """One BagTrainer step of TransMIL at the published widths: 6 launches
+    of the residual conv's kernels (two layers) and 4 of the PPEG's, and no
+    ATen depthwise kernel on the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpumil_torch.data.bags import Bag
+    from tpumil_torch.models.dsmil import DSMILConfig
+    from tpumil_torch.train.trainer import BagTrainer
+
+    rng = np.random.default_rng(7)
+    bags = [Bag(rng.standard_normal((3000, 64), np.float32),
+                np.eye(2, dtype=np.float32)[1], "b0")]
+    tr = BagTrainer(DSMILConfig(64, 2), model="transmil", device=card)
+    model, opt = tr.init(torch.Generator().manual_seed(0))
+    tr.train_epoch(model, opt, bags, 2e-4, np.random.default_rng(1))
+    before = dw.residual_conv.launches, dw.ppeg.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, loss = tr.train_epoch(model, opt, bags, 2e-4,
+                                    np.random.default_rng(2))
+        torch.cuda.synchronize()
+    assert np.isfinite(loss)
+    assert (dw.residual_conv.launches - before[0],
+            dw.ppeg.launches - before[1]) == (6, 4)
+    names = [e.key for e in prof.key_averages()]
+    assert any("dw_band_kernel" in k for k in names)
+    assert not any("conv_depthwise2d" in k for k in names)
+
+
+@pytest.mark.cuda
+def test_depthwise_gives_the_references_bits(card):
+    """The passes that the plain module runs on ATen's kernels in one order
+    give ATen's bits: the residual conv's forward, input gradient and
+    weight gradient against ``F.conv2d`` on ``v[None]``, and the PPEG's
+    forward against its three convs summed as ((dw7 + x) + dw5) + dw3 (the
+    merged 7x7 runs in its backward alone)."""
+    import torch.nn.functional as F
+
+    res, ppeg = _dw_inputs(card, 6758, seed=2)
+    (qkv,), (w,), t, dy = res["inputs"], res["leaves"], res["t"], res["dy"]
+    w = w.requires_grad_()
+    v = qkv.view(qkv.shape[0], 3, 8, 64).permute(1, 2, 0, 3)[2]
+    want = F.conv2d(v[None], w, padding=(16, 0), groups=8)[0, :, -t:]
+    want_grads = torch.autograd.grad(
+        want, [qkv, w], dy.view(t, 8, 64).permute(1, 0, 2))
+    got = dw.residual_conv(v, w, t)
+    assert torch.equal(got, want.transpose(0, 1).reshape(t, -1))
+    for a, b in zip(torch.autograd.grad(got, [qkv, w], dy), want_grads):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        x, side = ppeg["inputs"][0], ppeg["side"]
+        w7, b7, w5, b5, w3, b3 = ppeg["leaves"]
+        g = x[1:].transpose(0, 1).reshape(1, 512, side, side)
+        g = (F.conv2d(g, w7, b7, padding=3, groups=512) + g
+             + F.conv2d(g, w5, b5, padding=2, groups=512)
+             + F.conv2d(g, w3, b3, padding=1, groups=512))
+        want = torch.cat([x[:1], g.reshape(512, -1).transpose(0, 1)])
+        assert torch.equal(dw.ppeg(x, side, *ppeg["leaves"]), want)

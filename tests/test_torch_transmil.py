@@ -250,9 +250,11 @@ def test_spans_of_a_forward():
     names = [s.name for s in prof.collect()]
     assert set(names) == {"transmil.embed", "transmil.pad", "transmil.layer",
                           "transmil.nystrom", "transmil.landmarks",
-                          "transmil.pinv", "transmil.ppeg", "transmil.head"}
+                          "transmil.pinv", "transmil.res_conv",
+                          "transmil.ppeg", "transmil.head"}
     assert names.count("transmil.layer") == 2
     assert names.count("transmil.pinv") == 2
+    assert names.count("transmil.res_conv") == 2
 
 
 def test_the_two_reference_copies_agree():

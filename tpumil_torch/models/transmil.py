@@ -12,7 +12,8 @@ Per bag (feats ``F [N, K]``), at width D (512), with H = ceil(sqrt(N)):
   2. ``x = x + NA(LayerNorm(x))`` (layer 1);
   3. the PPEG: the non-cls rows, row-major, as a grid ``G`` [D, H, H],
      ``G <- dw7(G) + G + dw5(G) + dw3(G)`` (depthwise, with bias, same
-     padding), the cls row put back in front;
+     padding), the cls row put back in front (``ops/depthwise.ppeg``,
+     whose backward on the card is one 7x7 conv of merged weights);
   4. ``x = x + NA(LayerNorm(x))`` (layer 2);
   5. ``logits = LayerNorm(x)[cls] W2^T + b2`` [C].
 
@@ -26,9 +27,10 @@ by 6 iterations from ``Z0 = A2^T / (max row sum * max column sum of
 |A2|)`` (maxima over every head):
 ``Z <- Z/4 (13I - A2 Z (15I - A2 Z (7I - A2 Z)))``; then
 ``out = (A1 Z)(A3 v) + conv33(v)`` (a depthwise 33-tap convolution along
-the rows, one filter a head, no bias), the heads merged, ``W_o``, ``b_o``
-and dropout 0.1, and the last T rows kept. Only those rows are computed
-past the landmarks here: every op after them is row by row.
+the rows, one filter a head, no bias; ``ops/depthwise.residual_conv``,
+which reads v in the qkv projection's memory), the heads merged, ``W_o``,
+``b_o`` and dropout 0.1, and the last T rows kept. Only those rows are
+computed past the landmarks here: every op after them is row by row.
 
 Dropout draws its keep masks ``torch.rand(shape, generator=g) >= p`` from
 the trainer's generator, layer 1's before layer 2's, scaled by
@@ -51,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpumil_torch.models.dsmil import DSMILConfig
+from tpumil_torch.ops import depthwise
 from tpumil_torch.utils.device import disable_tf32, select_device
 from tpumil_torch.utils.prof import span
 
@@ -127,8 +130,10 @@ class NystromAttention(nn.Module):
                 a3 = torch.softmax(ql @ k.transpose(1, 2), -1)
             with span("transmil.pinv"):
                 z = pinv(a2, a.pinv_iterations)
-            out = (a1 @ z) @ (a3 @ v) + self.res_conv(v[None])[0, :, p - t:]
-            out = self.to_out(out.transpose(0, 1).reshape(t, -1))
+            with span("transmil.res_conv"):
+                res = depthwise.residual_conv(v, self.res_conv.weight, t)
+            out = res.view(t, h, -1) + ((a1 @ z) @ (a3 @ v)).transpose(0, 1)
+            out = self.to_out(out.reshape(t, -1))
             if self.training:
                 out = dropout(out, a.dropout, generator)
             return out
@@ -155,10 +160,9 @@ class PPEG(nn.Module):
 
     def forward(self, x: torch.Tensor, side: int) -> torch.Tensor:
         with span("transmil.ppeg"):
-            d = x.shape[-1]
-            g = x[1:].transpose(0, 1).view(1, d, side, side)
-            g = self.proj(g) + g + self.proj1(g) + self.proj2(g)
-            return torch.cat([x[:1], g.flatten(2)[0].transpose(0, 1)])
+            return depthwise.ppeg(x, side, self.proj.weight, self.proj.bias,
+                                  self.proj1.weight, self.proj1.bias,
+                                  self.proj2.weight, self.proj2.bias)
 
 
 class TransMIL(nn.Module):

@@ -136,5 +136,15 @@ def load_library() -> ctypes.CDLL:
             lib.tpumil_stem_scratch.restype = ctypes.c_longlong
             lib.tpumil_stem.argtypes = [p] * 4 + [i] * 2 + [ctypes.c_float, p]
             lib.tpumil_stem.restype = i
+            lib.tpumil_depthwise_band.argtypes = (
+                [i] * 4 + [p, i, i, i, p, p] + [i] * 7
+                + [p, p, i, p, i, i] + [p] * 5 + [i] * 4 + [p, i, p])
+            lib.tpumil_depthwise_band.restype = i
+            lib.tpumil_depthwise_rows_wgrad.argtypes = (
+                [p, i, i, p] + [i] * 5 + [p, p])
+            lib.tpumil_depthwise_rows_wgrad.restype = i
+            lib.tpumil_depthwise_reduce.argtypes = (
+                [p] + [i] * 6 + [p, p, i, p, i] + [p] * 4)
+            lib.tpumil_depthwise_reduce.restype = i
             _lib = lib
         return _lib
